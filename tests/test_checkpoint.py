@@ -13,8 +13,8 @@ from visual_odometry_tpu.utils.config import VOConfig
 
 
 @pytest.fixture(scope="module")
-def loaded(reference_data_dir_module):
-    data_dir = reference_data_dir_module
+def loaded(reference_data_dir):
+    data_dir = reference_data_dir
     params = io.load_camera_params(os.path.join(data_dir, "camera.dat"))
     camera = Camera.create(
         params.camera_matrix, rows=params.height, cols=params.width,
@@ -22,14 +22,6 @@ def loaded(reference_data_dir_module):
     )
     seq = io.load_sequence(data_dir, 128)
     return camera, seq
-
-
-@pytest.fixture(scope="module")
-def reference_data_dir_module():
-    d = "/root/reference/example_data/data"
-    if not os.path.isdir(d):
-        pytest.skip("reference example dataset not available")
-    return d
 
 
 def test_split_equals_oneshot(loaded, tmp_path):
@@ -78,10 +70,11 @@ def test_split_equals_oneshot(loaded, tmp_path):
 
 
 def test_split_equals_oneshot_fused(loaded):
-    """The fused resume path (continue_sequence on the one-kernel-launch
-    backend) must match: split == one-shot bit-for-bit on the fused
-    backend, and agree with the scan backend within the documented
-    cross-backend f32 tolerance — including the carried map."""
+    """The fused resume path (continue_sequence on the frame-loop kernel,
+    through the Pallas interpreter) must match: split == one-shot
+    bit-for-bit on the fused backend, and agree with the scan backend
+    within the documented cross-backend f32 tolerance — including the
+    carried map."""
     camera, seq = loaded
     cfg = VOConfig(gn_iterations=20, scan_backend="fused_interpret")
     pts = jnp.asarray(seq.points[:30])
@@ -123,7 +116,7 @@ def test_split_equals_oneshot_fused(loaded):
 
     # Cross-backend: the scan resume and the fused resume are different
     # f32 programs; they must agree to the kernel-equality tolerance.
-    cfg_x = cfg.replace(scan_backend="xla", solver_backend="xla")
+    cfg_x = cfg.replace(scan_backend="xla")
     sx, out_x = pipeline.continue_sequence(
         camera, cfg_x, state0, pts[2:], apps_[2:], m[2:], ids[2:]
     )

@@ -92,50 +92,3 @@ def test_padded_slots_never_match(rng):
     mask1[8:] = False
     got = _run(app1, mask1, app2, mask2)
     assert all(a < 8 for a, _ in got)
-
-
-def test_best_match_backends_agree(rng):
-    """best_match("pallas") == best_match("xla") bit-for-bit: distance AND
-    winning index (first-min tie-break), masked slots included."""
-    q_n, k_n = 64, 512
-    db = rng.uniform(-1, 1, (k_n, 10)).astype(np.float32)
-    q = db[rng.integers(0, k_n, q_n)].copy()
-    q[::5] += 0.01
-    db_mask = np.ones(k_n, bool)
-    db_mask[::7] = False
-    q_mask = np.ones(q_n, bool)
-    q_mask[::9] = False
-    db[~db_mask] = np.nan  # garbage in dead slots must not leak
-
-    d_x, i_x = matching.best_match(
-        jnp.asarray(q), jnp.asarray(q_mask), jnp.asarray(db),
-        jnp.asarray(db_mask), backend="xla",
-    )
-    d_p, i_p = matching.best_match(
-        jnp.asarray(q), jnp.asarray(q_mask), jnp.asarray(db),
-        jnp.asarray(db_mask), backend="pallas", interpret=True,
-    )
-    live = q_mask
-    np.testing.assert_array_equal(np.array(i_x)[live], np.array(i_p)[live])
-    np.testing.assert_allclose(np.array(d_x)[live], np.array(d_p)[live], atol=0)
-
-
-def test_match_appearances_pallas_backend_agrees(rng):
-    n = 128
-    a1 = rng.uniform(-1, 1, (n, 10)).astype(np.float32)
-    a2 = a1[rng.permutation(n)].copy() + rng.normal(0, 0.01, (n, 10)).astype(
-        np.float32
-    )
-    m1 = np.ones(n, bool); m1[::6] = False
-    m2 = np.ones(n, bool); m2[::11] = False
-    ref = matching.match_appearances(
-        jnp.asarray(a1), jnp.asarray(m1), jnp.asarray(a2), jnp.asarray(m2)
-    )
-    alt = matching.match_appearances(
-        jnp.asarray(a1), jnp.asarray(m1), jnp.asarray(a2), jnp.asarray(m2),
-        backend="pallas", interpret=True,
-    )
-    np.testing.assert_array_equal(np.array(ref.valid), np.array(alt.valid))
-    live = np.array(ref.valid)
-    np.testing.assert_array_equal(np.array(ref.idx1)[live], np.array(alt.idx1)[live])
-    np.testing.assert_array_equal(np.array(ref.idx2)[live], np.array(alt.idx2)[live])

@@ -3,7 +3,7 @@
 Spawns two real OS processes, each owning 2 virtual CPU devices, that
 coordinate through ``jax.distributed`` (gRPC) and run a shard_map psum
 over the 4-device global mesh — the multi-process branch of
-parallel/mesh.py that a TPU pod slice would take, exercised end to end.
+parallel/mesh.py that a multi-host deployment takes, exercised end to end.
 Skips cleanly where the environment cannot support the coordination
 service (no localhost networking, old jaxlib).
 """

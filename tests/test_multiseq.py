@@ -14,10 +14,8 @@ from visual_odometry_tpu.utils.config import VOConfig
 
 
 @pytest.fixture(scope="module")
-def small_batch():
-    data_dir = "/root/reference/example_data/data"
-    if not os.path.isdir(data_dir):
-        pytest.skip("reference example dataset not available")
+def small_batch(reference_data_dir):
+    data_dir = reference_data_dir
     params = io.load_camera_params(os.path.join(data_dir, "camera.dat"))
     camera = Camera.create(
         params.camera_matrix, rows=params.height, cols=params.width,
@@ -28,11 +26,11 @@ def small_batch():
     pts = np.stack([seq.points[:30], seq.points[10:40]])
     apps = np.stack([seq.appearances[:30], seq.appearances[10:40]])
     mask = np.stack([seq.mask[:30], seq.mask[10:40]])
-    return camera, pts, apps, mask
+    return camera, pts, apps, mask, params.cam_in_robot
 
 
 def test_batched_equals_sequential(small_batch):
-    camera, pts, apps, mask = small_batch
+    camera, pts, apps, mask, _ = small_batch
     cfg = VOConfig(gn_iterations=20)
     traj_b, maps_b, outs_b = multiseq.run_sequences_batched(
         camera, cfg, jnp.asarray(pts), jnp.asarray(apps), jnp.asarray(mask)
@@ -46,95 +44,71 @@ def test_batched_equals_sequential(small_batch):
         )
 
 
-def test_serving_sublane_equals_vmap(small_batch):
-    """The sublane serving backend vs the vmap backend on real data.
-
-    Interpret mode re-associates the batched lane reductions (see
-    utils/selfcheck.check_frame_serving — compiled on TPU the two are
-    bitwise equal), so this asserts the fused-vs-scan style tolerance
-    plus exact map structure."""
-    camera, pts, apps, mask = small_batch
+@pytest.mark.parametrize("planar", [False, True])
+def test_batched_fused_equals_per_sequence(small_batch, planar):
+    """vmap of the frame-loop kernel (one program per sequence) gives each
+    sequence its single-sequence result (to the batched-vs-sequential f32
+    tolerance of the vmapped XLA stages around it), and agrees with the
+    batched scan within the kernel-vs-scan tolerance."""
+    camera, pts, apps, mask, mount = small_batch
     cfg = VOConfig(gn_iterations=20, scan_backend="fused_interpret")
-    traj_s, maps_s, outs_s = multiseq.run_sequences_batched(
-        camera, cfg, jnp.asarray(pts), jnp.asarray(apps), jnp.asarray(mask),
-        backend="sublane", inner_batch=2, interpret=True,
+    if planar:
+        cfg = cfg.with_planar_mount(mount)
+    traj_b, maps_b, outs_b = multiseq.run_sequences_batched(
+        camera, cfg, jnp.asarray(pts), jnp.asarray(apps), jnp.asarray(mask)
     )
-    traj_v, maps_v, _ = multiseq.run_sequences_batched(
-        camera, cfg, jnp.asarray(pts), jnp.asarray(apps), jnp.asarray(mask),
-        backend="vmap",
+    assert outs_b.pose.shape[:2] == (2, 28)
+    for b in range(2):
+        traj, map_1, _ = pipeline.run_sequence(
+            camera, cfg, jnp.asarray(pts[b]), jnp.asarray(apps[b]),
+            jnp.asarray(mask[b]),
+        )
+        np.testing.assert_allclose(
+            np.asarray(traj_b)[b], np.asarray(traj), atol=5e-4
+        )
+        assert int(np.asarray(maps_b.valid)[b].sum()) == int(
+            np.asarray(map_1.valid).sum()
+        )
+    traj_x, maps_x, _ = multiseq.run_sequences_batched(
+        camera, cfg.replace(scan_backend="xla"), jnp.asarray(pts),
+        jnp.asarray(apps), jnp.asarray(mask),
     )
     np.testing.assert_allclose(
-        np.asarray(traj_s)[:, :, :3, 3], np.asarray(traj_v)[:, :, :3, 3],
+        np.asarray(traj_b)[:, :, :3, 3], np.asarray(traj_x)[:, :, :3, 3],
         atol=2e-3,
     )
-    for b in range(2):
-        assert int(np.asarray(maps_s.valid)[b].sum()) == int(
-            np.asarray(maps_v.valid)[b].sum()
-        )
-    assert outs_s.pose.shape[0] == 2
 
 
-def test_serving_sublane_planar_equals_vmap(small_batch):
-    """est_SE2 serving: the planar sublane kernel (gn_loop_se2_batched)
-    vs the vmapped planar fused path on real data."""
-    camera, pts, apps, mask = small_batch
-    cfg = VOConfig(
-        gn_iterations=20, scan_backend="fused_interpret", planar=True,
-    )
-    traj_s, maps_s, _ = multiseq.run_sequences_batched(
-        camera, cfg, jnp.asarray(pts), jnp.asarray(apps), jnp.asarray(mask),
-        backend="sublane", inner_batch=2, interpret=True,
-    )
-    traj_v, maps_v, _ = multiseq.run_sequences_batched(
-        camera, cfg, jnp.asarray(pts), jnp.asarray(apps), jnp.asarray(mask),
-        backend="vmap",
-    )
-    np.testing.assert_allclose(
-        np.asarray(traj_s)[:, :, :3, 3], np.asarray(traj_v)[:, :, :3, 3],
-        atol=2e-3,
-    )
-    for b in range(2):
-        assert int(np.asarray(maps_s.valid)[b].sum()) == int(
-            np.asarray(maps_v.valid)[b].sum()
-        )
-
-
-def test_serving_inner_divisor():
-    assert multiseq._serving_inner(32, 8) == 8
-    assert multiseq._serving_inner(12, 8) == 6
-    assert multiseq._serving_inner(7, 8) == 7
-    assert multiseq._serving_inner(5, 4) == 1
-
-
-def test_serving_sublane_sharded_over_dp_mesh(small_batch):
-    """Multi-chip serving: shard_map of the sublane path over dp vs the
-    unsharded sublane path (interpret kernels on the virtual CPU mesh)."""
+def test_sharded_fused_over_dp_mesh(small_batch):
+    """The frame-loop kernel under shard_map over dp (one sequence per
+    device) equals the unsharded batch."""
     if len(jax.devices()) < 2:
         pytest.skip("needs multiple devices")
-    camera, pts, apps, mask = small_batch
+    camera, pts, apps, mask, _ = small_batch
     cfg = VOConfig(gn_iterations=20, scan_backend="fused_interpret")
     mesh = make_mesh(2, ("dp", "lm"), dp_size=2)
     traj_m, maps_m, _ = multiseq.run_sequences_batched(
         camera, cfg, jnp.asarray(pts), jnp.asarray(apps), jnp.asarray(mask),
-        backend="sublane", mesh=mesh, inner_batch=2, interpret=True,
+        mesh=mesh,
     )
     traj_1, maps_1, _ = multiseq.run_sequences_batched(
         camera, cfg, jnp.asarray(pts), jnp.asarray(apps), jnp.asarray(mask),
-        backend="sublane", inner_batch=1, interpret=True,
     )
-    # One sequence per device shard vs both in one sublane group: the
-    # fused-kernel math is identical per sequence; interpret-mode
-    # reduction fusion differs (selfcheck.check_frame_serving).
+    # One sequence per shard vs both in one vmapped program: the kernel
+    # math is the same, the vmapped XLA stages around it fuse differently.
     np.testing.assert_allclose(
         np.asarray(traj_m)[:, :, :3, 3], np.asarray(traj_1)[:, :, :3, 3],
-        atol=2e-3,
+        atol=5e-4,
+    )
+    np.testing.assert_array_equal(
+        np.asarray(maps_m.valid).sum(-1), np.asarray(maps_1.valid).sum(-1)
     )
 
 
 def test_sharded_over_dp_mesh(small_batch):
     if len(jax.devices()) < 2:
         pytest.skip("needs multiple devices")
-    camera, pts, apps, mask = small_batch
+    camera, pts, apps, mask, _ = small_batch
     cfg = VOConfig(gn_iterations=20)
     mesh = make_mesh(2, ("dp", "lm"), dp_size=2)
     traj_b, _, _ = multiseq.run_sequences_batched(

@@ -1,266 +1,297 @@
-"""Pallas kernels vs their pure-JAX references (interpret mode on CPU).
+"""The frame-loop Pallas kernel (ops/pallas/frame_kernel) against its plain
+references: the ``lax.scan`` over ``pipeline.frame_step``, ``ops.picp``,
+``ops.picp_se2`` and ``ops.triangulation``.
 
-On real TPU hardware the same comparisons are exercised by the benchmark
-and the TPU pipeline runs; these tests pin the kernel semantics.
+On the CPU the kernel runs through the Pallas interpreter
+(``scan_backend="fused_interpret"``) and its in-kernel math runs as plain
+JAX; the ``gpu``-marked test compiles it for the card.
 """
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 
-from visual_odometry_tpu.ops import picp, se3
+from visual_odometry_tpu.models import pipeline
+from visual_odometry_tpu.ops import picp, picp_se2, se3, triangulation
 from visual_odometry_tpu.ops.camera import project_points
-from visual_odometry_tpu.ops.pallas.matcher_kernel import best_match_pallas
-from visual_odometry_tpu.ops.pallas.picp_kernel import linearize_pallas
+from visual_odometry_tpu.ops.pallas import frame_kernel
 from visual_odometry_tpu.utils import synthetic
+from visual_odometry_tpu.utils.config import VOConfig
+
+MOUNT = np.array(
+    [[0, 0, 1, 0.2], [-1, 0, 0, 0], [0, -1, 0, 0], [0, 0, 0, 1]], np.float32
+)
 
 
-def test_matcher_kernel_matches_oracle(rng):
-    k, q_n, d = 1000, 77, 10
-    db = rng.uniform(-1, 1, (k, d)).astype(np.float32)
-    q = db[rng.integers(0, k, q_n)].copy()
-    q[:5] += 3.0
-    db_mask = np.ones(k, bool)
-    db_mask[500:600] = False
-    q_mask = np.ones(q_n, bool)
-    q_mask[-3:] = False
+@pytest.fixture(scope="module")
+def sequence():
+    rng = np.random.default_rng(0)
+    p, a, m = synthetic.generate_tracking_sequence(rng, 12, 64)
+    return synthetic.deep_camera(), jnp.asarray(p), jnp.asarray(a), jnp.asarray(m)
 
-    dist, idx = best_match_pallas(
-        jnp.asarray(q), jnp.asarray(q_mask), jnp.asarray(db), jnp.asarray(db_mask),
-        interpret=True,
+
+def _rows(pose):
+    return tuple(jnp.float32(x) for x in np.asarray(pose, np.float32)[:3, :4].reshape(12))
+
+
+def _cam_scalars(cam):
+    k = tuple(jnp.float32(x) for x in np.asarray(cam.camera_matrix).reshape(9))
+    return k, (cam.z_near, cam.z_far, cam.cols, cam.rows)
+
+
+def _pose(rows):
+    return np.vstack([np.asarray(jnp.stack(rows)).reshape(3, 4), [0, 0, 0, 1]])
+
+
+@pytest.mark.parametrize("planar", [False, True])
+def test_kernel_matches_scan(sequence, planar):
+    """The whole frame loop through the interpreter == the scan backend on a
+    real trajectory (two different f32 programs: trajectory within 2e-3,
+    identical correspondence and map counts)."""
+    cam, p, a, m = sequence
+    cfg = VOConfig(n_slots=64, map_capacity=256, gn_iterations=20)
+    if planar:
+        cfg = cfg.replace(planar=True)
+    tf, mf, of = pipeline.run_sequence(
+        cam, cfg.replace(scan_backend="fused_interpret"), p, a, m
     )
-    d2 = ((q[:, None, :] - db[None, :, :]) ** 2).sum(-1)
-    d2[:, ~db_mask] = np.inf
-    np.testing.assert_array_equal(np.array(idx)[q_mask], d2.argmin(1)[q_mask])
-    np.testing.assert_allclose(np.array(dist)[q_mask], d2.min(1)[q_mask], atol=1e-3)
-    assert (np.array(dist)[~q_mask] > 1e30).all()
-
-
-def test_matcher_kernel_first_index_tie_break(rng):
-    db = np.zeros((600, 10), np.float32)
-    db[100] = 1.0
-    db[400] = 1.0  # exact duplicate in a later tile
-    q = np.ones((1, 10), np.float32)
-    dist, idx = best_match_pallas(
-        jnp.asarray(q), jnp.ones(1, bool), jnp.asarray(db), jnp.ones(600, bool),
-        tk=128, interpret=True,
+    tx, mx, ox = pipeline.run_sequence(cam, cfg.replace(scan_backend="xla"), p, a, m)
+    np.testing.assert_allclose(np.asarray(tf), np.asarray(tx), atol=2e-3)
+    np.testing.assert_array_equal(
+        np.asarray(of.num_solver_corr), np.asarray(ox.num_solver_corr)
     )
-    assert int(idx[0]) == 100
+    np.testing.assert_array_equal(np.asarray(of.num_inliers), np.asarray(ox.num_inliers))
+    assert int(mf.valid.sum()) == int(mx.valid.sum())
+    assert int(np.asarray(of.join_overflow).sum()) == 0
 
 
-def test_matcher_kernel_garbage_in_masked_rows(rng):
-    db = rng.uniform(-1, 1, (256, 10)).astype(np.float32)
-    q = db[:8].copy()
-    db_mask = np.ones(256, bool)
-    db_mask[8:16] = False
-    db[8:16] = np.nan
-    dist, idx = best_match_pallas(
-        jnp.asarray(q), jnp.ones(8, bool), jnp.asarray(db), jnp.asarray(db_mask),
-        interpret=True,
-    )
-    np.testing.assert_array_equal(np.array(idx), np.arange(8))
-
-
-@pytest.mark.parametrize("n", [100, 300, 1000])
-def test_picp_kernel_matches_jax_linearize(rng, n):
-    world = synthetic.generate_points3d(rng, n)
-    # A pose far from convergence so H AND b are large (relative compare).
-    pose = np.array(se3.v2t_euler(jnp.asarray(np.float32([0.2, -0.1, 0.3, 0.05, -0.08, 0.02]))))
-    cam = synthetic.default_camera(pose)
-    gt_cam = synthetic.default_camera(np.eye(4, dtype=np.float32))
-    meas, valid = project_points(gt_cam, jnp.asarray(world))
-    w = np.array(valid).astype(np.float32)
-
-    h0, b0, s0 = picp.linearize(
-        cam, jnp.asarray(world), np.asarray(meas), jnp.asarray(w), jnp.float32(1e4)
-    )
-    cam_params = jnp.asarray(
-        [float(cam.z_near), float(cam.z_far), float(cam.cols), float(cam.rows)],
-        jnp.float32,
-    )
-    h1, b1, s1 = linearize_pallas(
-        cam.camera_matrix, cam.world_in_camera, cam_params,
-        jnp.asarray(world), jnp.asarray(np.asarray(meas)), jnp.asarray(w),
-        jnp.float32(1e4), interpret=True,
-    )
-    scale_h = max(1.0, float(np.abs(np.array(h0)).max()))
-    scale_b = max(1.0, float(np.abs(np.array(b0)).max()))
-    np.testing.assert_allclose(np.array(h1) / scale_h, np.array(h0) / scale_h, atol=1e-5)
-    np.testing.assert_allclose(np.array(b1) / scale_b, np.array(b0) / scale_b, atol=1e-5)
-    assert int(s0.num_inliers) == int(s1.num_inliers)
-    np.testing.assert_allclose(
-        float(s1.chi_inliers), float(s0.chi_inliers), rtol=1e-4, atol=1e-6
-    )
-    np.testing.assert_allclose(
-        float(s1.chi_outliers), float(s0.chi_outliers), rtol=1e-4, atol=1e-6
+def test_slot_padding_to_power_of_two(sequence):
+    """n_slots that is no power of two: the wrapper pads the lanes to one
+    (Triton's block sizes) and slices them off; results match the scan."""
+    cam, p, a, m = sequence
+    s = 48
+    cfg = VOConfig(n_slots=s, map_capacity=256, gn_iterations=20)
+    args = (p[:, :s], a[:, :s], m[:, :s])
+    tf, _, of = pipeline.run_sequence(cam, cfg.replace(scan_backend="fused_interpret"), *args)
+    tx, _, ox = pipeline.run_sequence(cam, cfg.replace(scan_backend="xla"), *args)
+    assert of.tri_points.shape == (10, s, 3) and of.tri_valid.shape == (10, s)
+    np.testing.assert_allclose(np.asarray(tf), np.asarray(tx), atol=2e-3)
+    np.testing.assert_array_equal(
+        np.asarray(of.tri_valid), np.asarray(ox.tri_valid)
     )
 
 
-def test_picp_kernel_keep_outliers(rng):
-    world = synthetic.generate_points3d(rng, 200)
-    cam = synthetic.default_camera(np.eye(4, dtype=np.float32))
-    meas, valid = project_points(cam, jnp.asarray(world))
-    meas = np.array(meas) + 100.0  # everything an outlier
-    w = np.array(valid).astype(np.float32)
-    cam_params = jnp.asarray([0.0, 5.0, 640.0, 480.0], jnp.float32)
-    args = (
-        cam.camera_matrix, cam.world_in_camera, cam_params,
-        jnp.asarray(world), jnp.asarray(meas), jnp.asarray(w), jnp.float32(1e3),
+def _kernel_args(cam, cfg, pp, aa, mm):
+    """The frame-loop kernel's inputs for one sequence, built the way
+    pipeline._track builds them."""
+    ids = jnp.full(mm.shape, -1, jnp.int32)
+    f0 = pipeline.FrameData(pp[0], aa[0], mm[0], ids[0])
+    f1 = pipeline.FrameData(pp[1], aa[1], mm[1], ids[1])
+    corr01 = pipeline._match(cfg, False, f0, f1)
+    state, _ = pipeline.initialize(cam, cfg, f0, f1, corr=corr01)
+    rest = pipeline.FrameData(pp[2:], aa[2:], mm[2:], ids[2:])
+    prev = pipeline.FrameData(pp[1:-1], aa[1:-1], mm[1:-1], ids[1:-1])
+    corr = pipeline._batched_match(cfg, False, rest, prev)
+    cand = frame_kernel.join_candidates(
+        jnp.concatenate([corr01.idx2[None], corr.idx2[:-1]]),
+        jnp.concatenate([corr01.valid[None], corr.valid[:-1]]),
+        corr.idx1, corr.valid, cfg.fused_join_depth,
     )
-    h_drop, b_drop, _ = linearize_pallas(*args, keep_outliers=False, interpret=True)
-    h_keep, b_keep, _ = linearize_pallas(*args, keep_outliers=True, interpret=True)
-    assert np.abs(np.array(h_drop)).max() == 0.0
-    assert np.abs(np.array(h_keep)).max() > 0.0
-    h0, b0, _ = picp.linearize(
-        cam, jnp.asarray(world), jnp.asarray(meas), jnp.asarray(w),
-        jnp.float32(1e3), keep_outliers=True,
+    w0 = frame_kernel.first_valid_join(
+        state.tri_points, state.tri_valid, cand.idx[0], cand.ok[0]
     )
-    scale = max(1.0, float(np.abs(np.array(h0)).max()))
-    np.testing.assert_allclose(np.array(h_keep) / scale, np.array(h0) / scale, atol=1e-5)
+    safe1 = jnp.where(corr.valid, corr.idx1, 0)[..., None]
+    safe2 = jnp.where(corr.valid, corr.idx2, 0)[..., None]
+    return (
+        state.x_curr, w0[0], w0[1], jax.tree.map(lambda x: x[1:], cand),
+        jnp.take_along_axis(prev.points, safe1, axis=1),
+        jnp.take_along_axis(rest.points, safe2, axis=1), corr.valid,
+    )
 
 
-def test_solve_fused_matches_xla_solve(rng):
-    """Whole-loop fused kernel (interpret mode) == ops.picp.solve, both
-    fixed-budget and early-exit."""
-    import jax.numpy as jnp
-    from visual_odometry_tpu.ops import picp
-    from visual_odometry_tpu.ops.camera import project_points
-    from visual_odometry_tpu.ops.pallas.picp_kernel import solve_fused
-    from visual_odometry_tpu.utils import synthetic
+@pytest.mark.parametrize("n_frames", [1, 2, 7])
+def test_track_frames_batched_equals_single(sequence, n_frames):
+    """vmap of the wrapper runs one program per sequence: each batch entry
+    equals its single-sequence call, for any frame count (to the last ulp
+    or so: the interpreter's batched evaluation fuses differently; the
+    compiled kernel runs the same program per block)."""
+    cam, p, a, m = sequence
+    cfg = VOConfig(n_slots=64, map_capacity=256, gn_iterations=20)
+    n = n_frames + 2
+    xs = [(p[:n], a[:n], m[:n]), (p[2:n + 2], a[2:n + 2], m[2:n + 2])]
+    args = [jax.jit(lambda *x: _kernel_args(cam, cfg, *x))(*x) for x in xs]
+    cam_params = jnp.stack([cam.z_near, cam.z_far, cam.cols, cam.rows])
 
+    def run(*kargs):
+        return frame_kernel.track_frames(
+            cam.camera_matrix, cam_params, *kargs, 20, 1e4, 1.0, 1e-12,
+            interpret=True,
+        )
+
+    singles = [jax.jit(run)(*x) for x in args]
+    batched = jax.jit(jax.vmap(run))(*jax.tree.map(lambda *t: jnp.stack(t), *args))
+    assert batched[0].shape == (2, n_frames, 4, 4)
+    assert batched[1].shape == (2, n_frames, 64, 3)
+    for b, single in enumerate(singles):
+        for got, want in zip(batched, single):
+            np.testing.assert_allclose(
+                np.asarray(got[b]), np.asarray(want), rtol=2e-5, atol=2e-5
+            )
+
+
+def _brute_candidates(src_idx2, src_valid, dst_idx1, dst_valid, depth):
+    s = src_idx2.shape[0]
+    idx = np.zeros((depth, s), np.int32)
+    ok = np.zeros((depth, s), bool)
+    over = np.zeros(s, bool)
+    for j in range(s):
+        if not dst_valid[j]:
+            continue
+        hits = [i for i in range(s) if src_valid[i] and src_idx2[i] == dst_idx1[j]]
+        for d, i in enumerate(hits[:depth]):
+            idx[d, j], ok[d, j] = i, True
+        over[j] = len(hits) > depth
+    return idx, ok, over
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_join_candidates_match_bruteforce(rng, depth):
+    """The segment-min chains == the first-wins scan of vo_complete.cpp:55-63
+    (d-th smallest matching source lane), overflow flags included."""
+    f, s = 3, 40
+    src_idx2 = rng.integers(0, 12, (f, s)).astype(np.int32)  # many duplicates
+    dst_idx1 = rng.integers(0, 14, (f, s)).astype(np.int32)
+    src_valid = rng.uniform(size=(f, s)) > 0.3
+    dst_valid = rng.uniform(size=(f, s)) > 0.2
+    got = frame_kernel.join_candidates(
+        jnp.asarray(src_idx2), jnp.asarray(src_valid),
+        jnp.asarray(dst_idx1), jnp.asarray(dst_valid), depth,
+    )
+    assert got.idx.shape == (f, depth, s)
+    for i in range(f):
+        idx, ok, over = _brute_candidates(
+            src_idx2[i], src_valid[i], dst_idx1[i], dst_valid[i], depth
+        )
+        np.testing.assert_array_equal(np.asarray(got.ok[i]), ok)
+        np.testing.assert_array_equal(np.asarray(got.idx[i]), idx)
+        np.testing.assert_array_equal(np.asarray(got.overflow[i]), over)
+
+
+def test_first_valid_join_skips_failed_triangulations():
+    tri = jnp.arange(18, dtype=jnp.float32).reshape(6, 3)
+    tri_ok = jnp.asarray([True, False, True, True, False, True])
+    idx = jnp.asarray([[1, 0, 4, 3], [2, 5, 0, 1]], jnp.int32)
+    ok = jnp.asarray([[True, True, True, False], [True, True, False, True]])
+    pts, have = frame_kernel.first_valid_join(tri, tri_ok, idx, ok)
+    # lane 0: cand 1 failed -> cand 2; lane 1: cand 0; lane 2: 4 failed and
+    # no second; lane 3: first absent, second (1) failed.
+    np.testing.assert_array_equal(np.asarray(have), [True, True, False, False])
+    np.testing.assert_array_equal(np.asarray(pts[:2]), np.asarray(tri[jnp.asarray([2, 0])]))
+
+
+def test_kernel_triangulation_matches_ops(rng):
+    """In-kernel mid-point triangulation == ops.triangulation on lanes."""
+    cam0 = synthetic.default_camera(np.eye(4, dtype=np.float32))
+    x = synthetic.generate_pose(rng)
+    world = synthetic.generate_points3d(rng, 64)
+    p1, v1 = project_points(cam0, jnp.asarray(world))
+    p2, v2 = project_points(synthetic.default_camera(x), jnp.asarray(world))
+    slots = jnp.arange(64, dtype=jnp.int32)
+    valid = v1 & v2
+    ref, ref_ok = triangulation.triangulate_correspondences(
+        cam0.camera_matrix, jnp.asarray(x), slots, slots, valid, p1, p2
+    )
+    ik = tuple(jnp.float32(v) for v in np.linalg.inv(np.asarray(cam0.camera_matrix)).reshape(9))
+    tx, ty, tz, ok = frame_kernel._triangulate(
+        _rows(x), ik, p1[:, 0], p1[:, 1], p2[:, 0], p2[:, 1], valid
+    )
+    np.testing.assert_array_equal(np.asarray(ok), np.asarray(ref_ok))
+    got = np.stack([tx, ty, tz], -1)[np.asarray(ok)]
+    np.testing.assert_allclose(got, np.asarray(ref)[np.asarray(ok)], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("tol", [0.0, 1e-12])
+def test_kernel_gn_matches_picp_solve(rng, tol):
+    """The in-kernel SE(3) Gauss-Newton loop == ops.picp.solve, both the
+    fixed budget and the early exit."""
     world = synthetic.generate_points3d(rng, 160)
     x_gt = synthetic.generate_pose(rng)
     cam = synthetic.default_camera(np.eye(4, dtype=np.float32))
     meas, v = project_points(synthetic.default_camera(x_gt), jnp.asarray(world))
     w = v.astype(jnp.float32)
-    cam_params = jnp.stack([cam.z_near, cam.z_far, cam.cols, cam.rows])
-
-    for tol in (0.0, 1e-12):
-        solved, st = picp.solve(
-            cam, jnp.asarray(world), meas, w, 50,
-            kernel_threshold=10000.0, tolerance=tol, backend="xla",
-        )
-        pose, st2 = solve_fused(
-            cam.camera_matrix, cam.world_in_camera, cam_params,
-            jnp.asarray(world), meas, w, 50,
-            jnp.float32(10000.0), jnp.float32(1.0),
-            jnp.float32(tol if tol > 0 else -1.0), interpret=True,
-        )
-        np.testing.assert_allclose(
-            np.asarray(pose), np.asarray(solved.world_in_camera), atol=5e-5
-        )
-        assert int(st.num_inliers) == int(st2.num_inliers)
-
-
-def test_selfcheck_runs_in_interpret_mode():
-    """The packaged backend-equality self-check (utils/selfcheck, run on
-    the real chip by bench.py) passes through the Pallas interpreter."""
-    from visual_odometry_tpu.utils import selfcheck
-
-    diffs = selfcheck.run_all(interpret=True)
-    assert diffs["matcher_dist_diff"] == 0.0
-    assert diffs["picp_pose_diff_fixed"] < 5e-4
-    # Same bound as selfcheck.check_frame_pipeline: two genuinely different
-    # f32 programs on a REAL trajectory agree to ~7e-4.
-    assert diffs["frame_traj_diff"] < 2e-3
-
-
-def test_match_pairs_pallas_matches_xla_batch(rng):
-    """Batched pair-matcher kernel (interpret) == vmapped dense matcher:
-    bitwise distances, identical indices and kd-side selection."""
-    import jax.numpy as jnp
-    import numpy as np
-
-    from visual_odometry_tpu.ops import matching
-
-    b, n, d = 7, 64, 10
-    a1 = rng.uniform(-1, 1, (b, n, d)).astype(np.float32)
-    a2 = a1 + rng.normal(0, 0.02, (b, n, d)).astype(np.float32)
-    m1 = rng.uniform(size=(b, n)) > 0.2
-    m2 = rng.uniform(size=(b, n)) > 0.2
-    # NaN garbage in masked slots must not change any match.
-    a1[~m1] = np.nan
-    a2[~m2] = np.nan
-    # Duplicate rows to exercise first-index tie-breaking.
-    a2[:, 5] = a2[:, 3]
-
-    ref = matching.match_appearances_batch(
-        jnp.asarray(a1), jnp.asarray(m1), jnp.asarray(a2), jnp.asarray(m2),
-        backend="xla",
+    solved, st = picp.solve(cam, jnp.asarray(world), meas, w, 50,
+                            kernel_threshold=10000.0, tolerance=tol)
+    k, (zn, zf, cols, rows) = _cam_scalars(cam)
+    wj = jnp.asarray(world)
+    out = frame_kernel._gn_se3(
+        50, 1, k, _rows(np.eye(4)), wj[:, 0], wj[:, 1], wj[:, 2],
+        meas[:, 0], meas[:, 1], w, zn, zf, cols, rows,
+        jnp.float32(1e4), jnp.float32(0.0), jnp.float32(1.0),
+        jnp.float32(tol if tol > 0 else -1.0), jnp.float32(0.0),
     )
-    got = matching.match_appearances_batch(
-        jnp.asarray(a1), jnp.asarray(m1), jnp.asarray(a2), jnp.asarray(m2),
-        backend="pairs_pallas", interpret=True,
+    np.testing.assert_allclose(_pose(out[:12]), np.asarray(solved.world_in_camera), atol=5e-5)
+    assert int(out[14]) == int(st.num_inliers)
+
+
+def test_kernel_gn_se2_matches_solve_se2(rng):
+    """The in-kernel planar loop == ops.picp_se2.solve_se2 (est_SE2)."""
+    world = synthetic.generate_points3d(rng, 160)
+    c = MOUNT
+    dx = np.asarray(se3.v2t_euler(jnp.float32([0.05, -0.03, 0.0, 0.0, 0.0, 0.02])))
+    x_gt = np.linalg.inv(c) @ np.asarray(se3.project_se2(jnp.asarray(dx))) @ c
+    cam = synthetic.default_camera(np.eye(4, dtype=np.float32))
+    meas, v = project_points(synthetic.default_camera(x_gt), jnp.asarray(world))
+    w = v.astype(jnp.float32)
+    solved, st = picp_se2.solve_se2(
+        cam, jnp.asarray(world), meas, w, 30, kernel_threshold=10000.0,
+        tolerance=1e-12, cam_in_robot=c,
     )
-    np.testing.assert_array_equal(np.asarray(ref.valid), np.asarray(got.valid))
-    v = np.asarray(ref.valid)
+    k, (zn, zf, cols, rows) = _cam_scalars(cam)
+    wj = jnp.asarray(world)
+    out = frame_kernel._gn_se2(
+        30, 1, k, _rows(c), _rows(np.linalg.inv(c)), _rows(np.eye(4)),
+        wj[:, 0], wj[:, 1], wj[:, 2], meas[:, 0], meas[:, 1], w,
+        zn, zf, cols, rows, jnp.float32(1e4), jnp.float32(0.0),
+        jnp.float32(1.0), jnp.float32(1e-12), jnp.float32(0.0),
+    )
+    np.testing.assert_allclose(_pose(out[:12]), np.asarray(solved.world_in_camera), atol=5e-5)
+    assert int(out[14]) == int(st.num_inliers)
+
+
+@pytest.mark.parametrize("s", [16, 100, 128])
+def test_kernel_lowers_for_triton(s):
+    """The kernel lowers to Triton IR for a CUDA target (what the card
+    compiles), one program per sequence under vmap, with lanes padded to a
+    power of two. Lowering needs no GPU; compiling it does."""
+    cfg = VOConfig(n_slots=s, scan_backend="fused")
+    f = 6
+    p = jnp.zeros((3, f, s, 2))
+    a = jnp.zeros((3, f, s, 10))
+    m = jnp.zeros((3, f, s), bool)
+    ids = jnp.full((f, s), -1, jnp.int32)
+    cam = synthetic.deep_camera()
+
+    def run(pp, aa, mm):
+        return pipeline._run(cam, cfg, pp, aa, mm, ids, False)
+
+    text = (
+        jax.jit(jax.vmap(run)).trace(p, a, m)
+        .lower(lowering_platforms=("cuda",)).as_text()
+    )
+    assert text.count("__gpu$xla.gpu.triton") == 1
+    assert "grid_x = 3 " in text and "num_warps = 4 " in text
+
+
+@pytest.mark.gpu
+def test_compiled_kernel_matches_scan_on_gpu(gpu, sequence):
+    """The kernel compiled for the card == the scan backend (same bounds as
+    the interpreter test). Runs with JAX_PLATFORMS=cuda on a GPU."""
+    cam, p, a, m = sequence
+    cfg = VOConfig(n_slots=64, map_capacity=256, gn_iterations=20)
+    tf, _, of = pipeline.run_sequence(cam, cfg.replace(scan_backend="fused"), p, a, m)
+    tx, _, ox = pipeline.run_sequence(cam, cfg.replace(scan_backend="xla"), p, a, m)
+    np.testing.assert_allclose(np.asarray(tf), np.asarray(tx), atol=2e-3)
     np.testing.assert_array_equal(
-        np.asarray(ref.idx1)[v], np.asarray(got.idx1)[v]
+        np.asarray(of.num_solver_corr), np.asarray(ox.num_solver_corr)
     )
-    np.testing.assert_array_equal(
-        np.asarray(ref.idx2)[v], np.asarray(got.idx2)[v]
-    )
-
-
-def test_gather_rows_pallas_matches_take_along_axis(rng):
-    """Tiled vreg lane-gather kernel (interpret) == take_along_axis."""
-    import jax.numpy as jnp
-    import numpy as np
-
-    from visual_odometry_tpu.ops.pallas import gather_kernel
-
-    for f, r, s in ((5, 4, 64), (3, 8, 256), (2, 3, 1024)):
-        src = rng.normal(size=(f, r, s)).astype(np.float32)
-        idx = rng.integers(0, s, (f, r, s)).astype(np.int32)
-        out = gather_kernel.gather_rows(
-            jnp.asarray(src), jnp.asarray(idx), interpret=True
-        )
-        ref = np.take_along_axis(src, idx, axis=2)
-        np.testing.assert_array_equal(np.asarray(out), ref)
-
-    # take_lanes restores integer dtypes exactly.
-    a = rng.integers(0, 1000, (4, 128)).astype(np.int32)
-    b = rng.normal(size=(4, 128)).astype(np.float32)
-    i1 = rng.integers(0, 128, (4, 128)).astype(np.int32)
-    i2 = rng.integers(0, 128, (4, 128)).astype(np.int32)
-    ga, gb = gather_kernel.take_lanes(
-        [jnp.asarray(a), jnp.asarray(b)], [jnp.asarray(i1), jnp.asarray(i2)],
-        interpret=True,
-    )
-    assert ga.dtype == jnp.int32
-    np.testing.assert_array_equal(np.asarray(ga), np.take_along_axis(a, i1, 1))
-    np.testing.assert_array_equal(np.asarray(gb), np.take_along_axis(b, i2, 1))
-
-
-def test_take_table_matches_gather(rng):
-    import jax.numpy as jnp
-    import numpy as np
-
-    from visual_odometry_tpu.ops.pallas import gather_kernel
-
-    for r, t, n in ((6, 512, 5000), (3, 100, 257), (8, 1024, 4096)):
-        table = rng.normal(size=(r, t)).astype(np.float32)
-        idx = rng.integers(0, t, n).astype(np.int32)
-        out = gather_kernel.take_table(
-            jnp.asarray(table), jnp.asarray(idx), interpret=True
-        )
-        np.testing.assert_array_equal(np.asarray(out), table[:, idx])
-
-
-def test_segment_sum_small_matches_segment_sum(rng):
-    import jax
-    import jax.numpy as jnp
-    import numpy as np
-
-    from visual_odometry_tpu.ops.pallas import segsum_kernel
-
-    n, r, t = 5000, 6, 512
-    vals = rng.normal(size=(n, r)).astype(np.float32)
-    seg = rng.integers(0, t, n).astype(np.int32)
-    # Some dropped (padding) rows.
-    seg[::17] = t
-    out = segsum_kernel.segment_sum_small(
-        jnp.asarray(vals), jnp.asarray(seg), t, interpret=True
-    )
-    ref = jax.ops.segment_sum(jnp.asarray(vals), jnp.asarray(seg), num_segments=t + 1)[:t]
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref), rtol=2e-5, atol=1e-4)

@@ -1,6 +1,6 @@
 """PCA-split tree: exact-vs-approximate cross-checks.
 
-The TPU port of ``eigen_kdtree_test.cpp:42-67``: validate the one-sided
+The port of ``eigen_kdtree_test.cpp:42-67``: validate the one-sided
 (`bestMatchFast`-style) search against the exact dense search per query.
 """
 

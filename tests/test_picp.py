@@ -131,7 +131,7 @@ def test_linearize_matches_scalar_oracle(rng):
 def test_min_num_inliers_floor_skips_update(rng):
     """picp_solver.cpp:103-107: rounds with < min_num_inliers inliers apply
     no pose update, so a floor above the available inlier count freezes the
-    start pose in every backend."""
+    start pose — in ops.picp.solve and in the frame-loop kernel's GN."""
     world = synthetic.generate_points3d(rng, 512)
     gt_pose = _perturbed_pose(rng, 0.05)
     cam_gt = synthetic.default_camera(gt_pose)
@@ -142,43 +142,27 @@ def test_min_num_inliers_floor_skips_update(rng):
     start = _perturbed_pose(rng, 0.05)
     cam0 = synthetic.default_camera(start)
 
-    for backend in ("xla", "pallas"):
-        if backend == "pallas":
-            from visual_odometry_tpu.ops.pallas.picp_kernel import solve_fused
-
-            pose, stats = solve_fused(
-                cam0.camera_matrix,
-                cam0.world_in_camera,
-                jnp.stack([cam0.z_near, cam0.z_far, cam0.cols, cam0.rows]),
-                jnp.asarray(world),
-                meas,
-                weights,
-                20,
-                jnp.float32(10000.0),
-                jnp.float32(1.0),
-                jnp.float32(-1.0),
-                interpret=True,
-                min_num_inliers=jnp.float32(n_valid + 1),
-            )
-            frozen = np.array(pose)
+    for path in ("xla", "kernel"):
+        if path == "kernel":
+            out = _kernel_gn(cam0, world, meas, weights, 20, -1.0,
+                             min_inl=n_valid + 1)
+            frozen, n_inl = _pose_of(out), int(out[14])
         else:
             cam_est, stats = picp.solve(
                 cam0, jnp.asarray(world), meas, weights, 20,
-                min_num_inliers=n_valid + 1, backend=backend,
+                min_num_inliers=n_valid + 1,
             )
             frozen = np.array(cam_est.world_in_camera)
+            n_inl = int(stats.num_inliers)
         np.testing.assert_allclose(frozen, start, atol=1e-6)
         # Stats still reflect the (skipped) round's linearization.
-        assert 0 < int(stats.num_inliers) <= n_valid
+        assert 0 < n_inl <= n_valid
 
     # A floor the data satisfies must not change the solution.
     cam_lo, _ = picp.solve(
         cam0, jnp.asarray(world), meas, weights, 50, min_num_inliers=4,
-        backend="xla",
     )
-    cam_ref, _ = picp.solve(
-        cam0, jnp.asarray(world), meas, weights, 50, backend="xla"
-    )
+    cam_ref, _ = picp.solve(cam0, jnp.asarray(world), meas, weights, 50)
     np.testing.assert_allclose(
         np.array(cam_lo.world_in_camera),
         np.array(cam_ref.world_in_camera),
@@ -215,7 +199,8 @@ def test_solve_is_jittable(rng):
 
 def test_min_iterations_delays_tolerance_exit(rng):
     """A huge tolerance exits after one round; min_iterations forces the
-    loop to keep refining first (same final contract in both backends)."""
+    loop to keep refining first (same final contract in ops.picp.solve and
+    the frame-loop kernel's GN)."""
     world = synthetic.generate_points3d(rng, 256)
     gt_pose = _perturbed_pose(rng, 0.05)
     meas, valid = project_points(synthetic.default_camera(gt_pose), jnp.asarray(world))
@@ -225,25 +210,39 @@ def test_min_iterations_delays_tolerance_exit(rng):
     # tolerance so large every round's dx passes it -> exit at min_iterations.
     one, _ = picp.solve(
         cam0, jnp.asarray(world), meas, weights, 50, tolerance=1e6,
-        backend="xla",
     )
     more, _ = picp.solve(
         cam0, jnp.asarray(world), meas, weights, 50, tolerance=1e6,
-        min_iterations=10, backend="xla",
+        min_iterations=10,
     )
     err_one = np.abs(np.array(one.world_in_camera) - gt_pose).max()
     err_more = np.abs(np.array(more.world_in_camera) - gt_pose).max()
     assert err_more < err_one * 0.5, (err_one, err_more)
 
-    from visual_odometry_tpu.ops.pallas.picp_kernel import solve_fused
-
-    cam_params = jnp.stack([cam0.z_near, cam0.z_far, cam0.cols, cam0.rows])
-    pose_p, _ = solve_fused(
-        cam0.camera_matrix, cam0.world_in_camera, cam_params,
-        jnp.asarray(world), meas, weights, 50,
-        jnp.float32(10000.0), jnp.float32(1.0), jnp.float32(1e6),
-        interpret=True, min_iterations=10,
-    )
+    out = _kernel_gn(cam0, world, meas, weights, 50, 1e6, min_iterations=10)
     np.testing.assert_allclose(
-        np.asarray(pose_p), np.array(more.world_in_camera), atol=5e-5
+        _pose_of(out), np.array(more.world_in_camera), atol=5e-5
     )
+
+
+def _kernel_gn(cam, world, meas, weights, iters, tol, min_inl=0.0,
+               min_iterations=1):
+    """The frame-loop kernel's SE(3) Gauss-Newton loop, run as plain JAX."""
+    from visual_odometry_tpu.ops.pallas import frame_kernel
+
+    f32 = jnp.float32
+    k = tuple(f32(x) for x in np.asarray(cam.camera_matrix).reshape(9))
+    pose0 = tuple(
+        f32(x) for x in np.asarray(cam.world_in_camera)[:3, :4].reshape(12)
+    )
+    w = jnp.asarray(world)
+    return frame_kernel._gn_se3(
+        iters, min_iterations, k, pose0, w[:, 0], w[:, 1], w[:, 2],
+        meas[:, 0], meas[:, 1], weights, cam.z_near, cam.z_far, cam.cols,
+        cam.rows, f32(10000.0), f32(0.0), f32(1.0), f32(tol), f32(min_inl),
+    )
+
+
+def _pose_of(out):
+    rows = np.asarray(jnp.stack(out[:12])).reshape(3, 4)
+    return np.vstack([rows, [0.0, 0.0, 0.0, 1.0]])

@@ -1,8 +1,9 @@
-"""End-to-end pipeline tests on the reference example dataset.
+"""End-to-end pipeline tests on the reference-shaped generated dataset.
 
-The acceptance criteria come straight from BASELINE.md: reproduce (or beat)
-e_theta mean ~5.3e-6 and RMSE_pos ~0.1453 after median-ratio scale
-correction on example_data.
+The dataset (utils/dataset_gen.generate_reference_shaped, seed 0) has the
+reference example's shape; accuracy is checked against the generator's
+ground truth, with each guard between the value measured here and a
+bound that a real regression would cross.
 """
 
 import os
@@ -18,10 +19,8 @@ from visual_odometry_tpu.utils import io
 
 
 @pytest.fixture(scope="module")
-def vo_run(tmp_path_factory):
-    data_dir = "/root/reference/example_data/data"
-    if not os.path.isdir(data_dir):
-        pytest.skip("reference example dataset not available")
+def vo_run(tmp_path_factory, reference_data_dir):
+    data_dir = reference_data_dir
     out = str(tmp_path_factory.mktemp("vo_out"))
     trajectory, map_state, outs, elapsed = apps.run_vo_complete(
         data_dir, out, verbose=False
@@ -34,17 +33,16 @@ def test_beats_reference_accuracy(vo_run):
     res = apps.run_evaluation(data_dir, out, verbose=False)
     finite = np.isfinite(res.orientation_errors)
     e_theta = np.abs(res.orientation_errors[finite]).mean()
-    # Reference baselines (BASELINE.md): e_theta 5.31e-6, RMSE_pos 0.1453,
-    # RMSE_map 0.1841, scale 0.47337. Measured here (2026-08): e_theta
-    # 2.71e-6, RMSE_pos 0.1409, RMSE_map 0.1285 — the guards sit between
-    # the measured values and the reference baselines, so ANY published
-    # metric regressing past the reference fails this test (a ~10% drift
-    # would previously have shipped under a green CI).
-    assert e_theta < 5.3e-6
-    assert res.rmse_position < 0.145
-    assert res.rmse_map is not None and res.rmse_map < 0.184
-    assert abs(res.scale - 0.47337) < 0.005
-    assert res.n_map_matched > 300
+    # Measured on the CPU against the generator's ground truth: e_theta
+    # 1.55e-6, RMSE_pos 0.0439, RMSE_map 0.0467, scale 1.1185, 831 map
+    # points matched (the reference reports 5.31e-6 / 0.1453 / 0.1841 on
+    # its own example data, BASELINE.md). The guards sit ~15% above the
+    # measured values, so a real regression fails this test.
+    assert e_theta < 1.8e-6
+    assert res.rmse_position < 0.05
+    assert res.rmse_map is not None and res.rmse_map < 0.054
+    assert abs(res.scale - 1.1185) < 0.005
+    assert res.n_map_matched > 800
 
 
 def test_trajectory_shape_and_start(vo_run):
@@ -87,12 +85,10 @@ def test_per_frame_diagnostics(vo_run):
     assert (inliers > 0).all()
 
 
-def test_refined_pipeline_beats_baseline_robustly(tmp_path):
-    """Tracking + BA refinement must beat EVERY reference metric with margin
+def test_refined_pipeline_beats_baseline_robustly(tmp_path, reference_data_dir):
+    """Tracking + BA refinement must improve on tracking alone with margin
     (this is the framework's flagship configuration)."""
-    data_dir = "/root/reference/example_data/data"
-    if not os.path.isdir(data_dir):
-        pytest.skip("reference example dataset not available")
+    data_dir = reference_data_dir
     from visual_odometry_tpu.utils.config import ACCURATE_CONFIG
 
     out = str(tmp_path)
@@ -100,15 +96,14 @@ def test_refined_pipeline_beats_baseline_robustly(tmp_path):
     res = apps.run_evaluation(data_dir, out, verbose=False)
     finite = np.isfinite(res.orientation_errors)
     e_theta = np.abs(res.orientation_errors[finite]).mean()
-    assert e_theta < 3e-6          # baseline 5.31e-6
-    assert res.rmse_position < 0.145  # baseline 0.1453
-    assert res.rmse_map < 0.15        # baseline 0.1841
+    # Measured: e_theta 1.66e-6, RMSE_pos 0.0336, RMSE_map 0.0237.
+    assert e_theta < 1.9e-6
+    assert res.rmse_position < 0.039
+    assert res.rmse_map < 0.028
 
 
-def test_known_da_pipeline(tmp_path):
-    data_dir = "/root/reference/example_data/data"
-    if not os.path.isdir(data_dir):
-        pytest.skip("reference example dataset not available")
+def test_known_da_pipeline(tmp_path, reference_data_dir):
+    data_dir = reference_data_dir
     out = str(tmp_path)
     # 100 GN iterations (not the reference's 1000) to keep the test fast;
     # accuracy with perfect DA should still beat the appearance-DA run.
@@ -120,7 +115,7 @@ def test_known_da_pipeline(tmp_path):
     )
     est = io.load_est_trajectory(os.path.join(out, "trajectory_est_data.txt"))
     res = ev.evaluate(est, gt_poses)
-    assert res.rmse_position < 0.16
+    assert res.rmse_position < 0.05  # measured 0.0439
 
 
 def test_bootstrap_error_on_too_few_correspondences(rng):

@@ -21,10 +21,8 @@ from visual_odometry_tpu.utils.config import VOConfig
 
 
 @pytest.fixture(scope="module")
-def real_seq():
-    data_dir = "/root/reference/example_data/data"
-    if not os.path.isdir(data_dir):
-        pytest.skip("reference example dataset not available")
+def real_seq(reference_data_dir):
+    data_dir = reference_data_dir
     params = io.load_camera_params(os.path.join(data_dir, "camera.dat"))
     camera = Camera.create(
         params.camera_matrix, rows=params.height, cols=params.width,
@@ -169,9 +167,10 @@ def test_chunked_sharded_over_mesh(real_seq):
 
 def test_refined_stitch_beats_reference_for_every_chunk_count(real_seq):
     """BA relaxation of the stitched result (posegraph.refine_stitched)
-    absorbs the per-boundary scale-chain noise: every chunk count in the
-    README table must land at RMSE <= 0.15 (reference baseline 0.1453,
-    evaluate.cpp:43-53 metric)."""
+    absorbs the per-boundary scale-chain noise: every chunk count must
+    land at RMSE <= 0.039 against the generator's ground truth (measured
+    0.0333-0.0336 for 2-6 chunks; the serial tracker alone measures
+    0.0439; evaluate.cpp:43-53 metric)."""
     params, camera, seq, gt = real_seq
     cfg = VOConfig()
     pts = jnp.asarray(seq.points)
@@ -187,9 +186,9 @@ def test_refined_stitch_beats_reference_for_every_chunk_count(real_seq):
         est = _abs_robot_poses(np.asarray(traj), params.cam_in_robot)
         res = evaluation.evaluate(est, gt)
         finite = np.isfinite(res.orientation_errors)
-        assert np.abs(res.orientation_errors[finite]).mean() < 1e-4
+        assert np.abs(res.orientation_errors[finite]).mean() < 5e-6
         rmses[c] = res.rmse_position
-    assert all(r <= 0.15 for r in rmses.values()), rmses
+    assert all(r <= 0.039 for r in rmses.values()), rmses
 
 
 def test_chunk0_bootstrap_hard_error(rng):

@@ -18,7 +18,7 @@ from visual_odometry_tpu import apps
 
 EIGEN = "/opt/venv/lib/python3.12/site-packages/tensorflow/include"
 REF = "/root/reference"
-BIN = "/tmp/vo_tpu_test_refeval"
+BIN = "/tmp/vo_test_refeval"
 
 
 @pytest.fixture(scope="module")

@@ -1,10 +1,8 @@
 """Scaling-efficiency evidence: sharded runs do no duplicated tracking work.
 
-BASELINE.md's acceptance criterion is ">=80% frames/s scaling efficiency
-from 1 chip to N>=2". On the virtual CPU mesh wall-clock is capped by the
-host's physical cores (parallel/scaling.py docstring), so these tests pin
-down the property that governs real-chip scaling: the compiled per-device
-work partition.
+On the virtual CPU mesh wall-clock is capped by the host's physical cores
+(parallel/scaling.py docstring), so these tests pin down the property that
+governs scaling on real cards: the compiled per-device work partition.
 """
 
 import jax

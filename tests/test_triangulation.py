@@ -61,7 +61,7 @@ def test_near_parallel_rays_never_emit_nonfinite(rng):
     """Rays just above the determinant epsilon can push the ray parameters
     past f32 range; such points must be rejected (ok=False) and zeroed —
     a non-finite 'valid' triangulation NaN-poisons downstream GN through
-    inf * 0 (observed on TPU with a degenerate bootstrap)."""
+    inf * 0 (observed on an accelerator with a degenerate bootstrap)."""
     from visual_odometry_tpu.ops import triangulation
     from visual_odometry_tpu.utils import synthetic
 

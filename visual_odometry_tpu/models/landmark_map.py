@@ -1,6 +1,6 @@
 """Fixed-capacity landmark map with exact-appearance merge, on device.
 
-TPU-native re-design of ``PointCloudVector::update``
+Re-design of ``PointCloudVector::update``
 (``/root/reference/include/PointCloud.h:52-66``): the reference linearly
 scans the whole map per incoming point (O(map x new) on the host, the
 hottest non-solver loop per SURVEY.md §3.1); here the merge is one
@@ -108,7 +108,7 @@ def merge_stream(
     Equivalent to iterating :func:`update` over the stream (for the
     unique-key-per-frame data the tracker produces), but O(1) in the number
     of frames: a scatter-heavy sequential merge becomes sort -> group ->
-    select, the canonical TPU transformation for key-wise aggregation.
+    select, the standard accelerator form of key-wise aggregation.
 
       * group: rows with bit-identical appearance keys (exact float
         equality, PointCloud.h:56 — -0.0 is canonicalized to +0.0 first so
@@ -136,11 +136,8 @@ def merge_stream(
     time = jnp.where(mask, jnp.arange(t, dtype=jnp.int32), jnp.int32(t))
 
     # Sort 1: group identical keys, time-ascending within each group,
-    # payloads (points, mask) carried THROUGH the sort. A TPU sort's cost
-    # scales with the bytes it carries, but XLA lowers the alternative — a
-    # keys-plus-row-index sort followed by payload gathers — to serialized
-    # scalar-core gathers (~3 ms per (T,) column at T=523k, measured: the
-    # gathers cost ~2x what the widened sort does).
+    # payloads (points, mask) carried THROUGH the sort instead of a
+    # keys-plus-row-index sort followed by payload gathers.
     s = jax.lax.sort(
         tuple(keys[:, i] for i in range(d))
         + (time, points[:, 0], points[:, 1], points[:, 2], mask),

@@ -1,6 +1,6 @@
 """The end-to-end monocular VO pipeline as ONE jitted program.
 
-TPU-native re-design of ``vo_complete``
+Re-design of ``vo_complete``
 (``/root/reference/src/apps/vo_complete.cpp:68-186``) and ``vo_daKnown``
 (``/root/reference/src/tests/vo_daKnown.cpp``). The reference drives every
 frame from a host loop (vo_complete.cpp:150-179) with per-frame kd-tree
@@ -11,7 +11,9 @@ the *entire* sequence after the two-frame initialization is a single
   match -> lookup-join -> PICP (fori_loop) -> triangulate -> map merge
 
 so the whole trajectory is computed in one device program with zero host
-round-trips. All shapes are static (``VOConfig.n_slots`` measurement slots
+round-trips. On a GPU the frame loop runs as one Pallas kernel instead of
+the scan (ops/pallas/frame_kernel, ``VOConfig.scan_backend``); the scan is
+its reference and the CPU path. All shapes are static (``VOConfig.n_slots`` measurement slots
 per frame, ``VOConfig.map_capacity`` landmarks) with validity masks.
 
 Data-flow invariants preserved from the reference (SURVEY.md §6):
@@ -79,7 +81,7 @@ class FrameOutput(NamedTuple):
     join_overflow: Array  # () int32 lanes whose world-join duplicate-target
     #   multiplicity exceeded fused_join_depth this frame. Always 0 on the
     #   scan backend (its lookup join is exact at any multiplicity); a
-    #   nonzero count on the fused backend means the depth-limited chain
+    #   nonzero count on the fused kernel means the depth-limited chain
     #   can no longer guarantee vo_complete.cpp:55-63 first-wins semantics
     #   — the product entry points raise FusedJoinDepthError on it.
 
@@ -106,18 +108,8 @@ def _match(config: VOConfig, use_known_da: bool, ref: FrameData, cur: FrameData)
     if use_known_da:
         return match_by_ids(ref.ids, ref.mask, cur.ids, cur.mask)
     return matching.match_appearances(
-        ref.appearances, ref.mask, cur.appearances, cur.mask,
-        config.match_radius, backend=_frame_matcher_backend(config),
+        ref.appearances, ref.mask, cur.appearances, cur.mask, config.match_radius
     )
-
-
-def _frame_matcher_backend(config: VOConfig) -> str:
-    """Resolve the per-frame matcher backend: "auto" means the dense XLA
-    path at frame slot counts (best_match's auto threshold exists for
-    map-scale databases; a frame pair is far below it)."""
-    if config.matcher_backend == "auto" and config.n_slots < matching.PALLAS_MIN_DB:
-        return "xla"
-    return config.matcher_backend
 
 
 def _lookup_from_corr(corr: matching.Correspondences, tri_ok: Array, n_slots: int) -> Array:
@@ -145,7 +137,7 @@ class FusedJoinDepthError(RuntimeError):
     can no longer guarantee the reference's first-successfully-triangulated
     join semantics (vo_complete.cpp:55-63). Fix: raise
     ``VOConfig.fused_join_depth`` to at least the reported multiplicity
-    bound (restores exactness at ~4 extra gather rows per level) or run
+    bound (restores exactness at one extra triangulation per level) or run
     ``scan_backend="xla"`` (exact at any multiplicity)."""
 
 
@@ -177,7 +169,7 @@ def check_join_overflow(outs: FrameOutput) -> None:
 class BootstrapError(RuntimeError):
     """The two-view bootstrap cannot produce a usable initialization.
 
-    The TPU-native analogue of the reference's hard exits: < 8
+    The analogue of the reference's hard exits: < 8
     correspondences aborts ``estimate_fundamental``
     (epipolar_utils.cpp:104-108) and unreadable inputs abort the app
     (vo_complete.cpp:95-107)."""
@@ -399,7 +391,6 @@ def frame_step(
             damping=config.damping,
             keep_outliers=config.keep_outliers,
             tolerance=config.gn_tolerance,
-            backend=config.solver_backend,
             min_num_inliers=config.min_num_inliers,
             min_iterations=config.gn_min_iterations,
         )
@@ -454,18 +445,9 @@ def _batched_match(
     """
     if use_known_da:
         return jax.vmap(match_by_ids)(prev.ids, prev.mask, frames.ids, frames.mask)
-    if config.matcher_backend == "auto":
-        # Batched pair matching goes through the single-pass Pallas kernel
-        # on TPU: the dense (B, N, N) distance tensor otherwise reaches HBM
-        # and is rematerialized per reduction inside the big tracking
-        # program (ops/matching.match_appearances_batch docstring). An
-        # explicit matcher_backend is honored verbatim.
-        backend = "pairs_pallas" if jax.default_backend() == "tpu" else "xla"
-    else:
-        backend = _frame_matcher_backend(config)
     return matching.match_appearances_batch(
         prev.appearances, prev.mask, frames.appearances, frames.mask,
-        radius=config.match_radius, backend=backend,
+        radius=config.match_radius,
     )
 
 
@@ -478,8 +460,11 @@ class InitTriangulation(NamedTuple):
 
 
 def _resolve_scan_backend(config: VOConfig) -> str:
+    """"auto" runs the fused frame-loop kernel on a GPU and the scan
+    elsewhere; "fused_interpret" is the same kernel through the Pallas
+    interpreter (the CPU-testable form of the fused path)."""
     if config.scan_backend == "auto":
-        return "fused" if jax.default_backend() == "tpu" else "xla"
+        return "fused" if jax.default_backend() == "gpu" else "xla"
     return config.scan_backend
 
 
@@ -487,74 +472,54 @@ def _run_fused(
     camera: Camera,
     config: VOConfig,
     x_curr: Array,
-    tri_points: Array,
-    tri_valid: Array,
+    w0: Tuple[Array, Array],
     cand,
+    overflow0: Array,
     prev: FrameData,
     cur: FrameData,
     corr_all: matching.Correspondences,
-    fused_interpret: bool,
+    interpret: bool,
 ) -> FrameOutput:
-    """The whole frame loop as ONE kernel launch (ops/pallas/frame_kernel):
-    the scan form costs ~38 device kernels per frame in sequencing overhead
-    alone. Everything pose-independent is hoisted out of the kernel and
-    batched over frames here: appearance gathers, match counts, the
-    lane-aligned pixel rows, and the frame-to-frame world join's first-wins
-    candidate chains (pure index arithmetic over the correspondence
-    tables — precomputed by the caller, who knows where the previous step's
-    correspondences come from: the bootstrap pair for a fresh sequence,
-    the carried ``point_lookup`` for a resumed one)."""
-    from ..ops.pallas import frame_kernel, gather_kernel
+    """The whole frame loop as ONE kernel launch (ops/pallas/frame_kernel).
+
+    Everything pose-independent is batched over frames here: the
+    lane-aligned pixel rows, triangulated appearances and match counts.
+    The caller supplies the world-join chains of frames 1.. (``cand``) and
+    the first frame's joined source points (``w0``), since only it knows
+    where the step before the first comes from: the bootstrap pair for a
+    fresh sequence, the carried ``point_lookup`` for a resumed one.
+    ``overflow0`` is the first frame's join-overflow lane flags.
+    """
+    from ..ops.pallas import frame_kernel
 
     cam_params = jnp.stack(
         [camera.z_near, camera.z_far, camera.cols, camera.rows]
     )
-    safe1 = jnp.where(corr_all.valid, corr_all.idx1, 0)
-    safe2 = jnp.where(corr_all.valid, corr_all.idx2, 0)
-    # Lane-aligned pixel rows via the Pallas gather kernel (XLA's
-    # general gather serializes on the scalar core; gather_kernel).
-    px1, py1, px2, py2 = gather_kernel.take_lanes(
-        [prev.points[..., 0], prev.points[..., 1],
-         cur.points[..., 0], cur.points[..., 1]],
-        [safe1, safe1, safe2, safe2],
-        interpret=fused_interpret,
-    )
-    prev_al = jnp.stack([px1, py1], axis=-1)
-    cur_al = jnp.stack([px2, py2], axis=-1)
-    poses, tri_all, tri_ok_all, solver_stats = frame_kernel.track_frames_fused(
+    safe1 = jnp.where(corr_all.valid, corr_all.idx1, 0)[..., None]
+    safe2 = jnp.where(corr_all.valid, corr_all.idx2, 0)[..., None]
+    poses, tri_all, tri_ok_all, solver_stats = frame_kernel.track_frames(
         camera.camera_matrix,
         cam_params,
         x_curr,
-        tri_points,
-        tri_valid,
+        w0[0],
+        w0[1],
         cand,
-        prev_al,
-        cur_al,
+        jnp.take_along_axis(prev.points, safe1, axis=1),
+        jnp.take_along_axis(cur.points, safe2, axis=1),
         corr_all.valid,
         config.gn_iterations,
-        jnp.asarray(config.kernel_threshold, jnp.float32),
-        jnp.asarray(config.damping, jnp.float32),
-        jnp.asarray(
-            config.gn_tolerance if config.gn_tolerance > 0.0 else -1.0,
-            jnp.float32,
-        ),
+        config.kernel_threshold,
+        config.damping,
+        config.gn_tolerance if config.gn_tolerance > 0.0 else -1.0,
         keep_outliers=config.keep_outliers,
         warm_start=config.warm_start,
-        min_num_inliers=jnp.asarray(config.min_num_inliers, jnp.float32),
-        interpret=fused_interpret,
+        min_num_inliers=config.min_num_inliers,
         min_iterations=config.gn_min_iterations,
         planar=config.planar,
         cam_in_robot=config.planar_mount(),
+        interpret=interpret,
     )
-    d_app = cur.appearances.shape[-1]
-    tri_apps_all = jnp.stack(
-        gather_kernel.take_lanes(
-            [cur.appearances[..., j] for j in range(d_app)],
-            [safe2] * d_app,
-            interpret=fused_interpret,
-        ),
-        axis=-1,
-    )
+    overflow = jnp.concatenate([overflow0[None], cand.overflow])
     return FrameOutput(
         pose=poses,
         num_matches=jnp.sum(corr_all.valid.astype(jnp.int32), axis=1),
@@ -562,9 +527,9 @@ def _run_fused(
         num_inliers=solver_stats[:, 2].astype(jnp.int32),
         chi_inliers=solver_stats[:, 0],
         tri_points=tri_all,
-        tri_apps=tri_apps_all,
+        tri_apps=jnp.take_along_axis(cur.appearances, safe2, axis=1),
         tri_valid=tri_ok_all,
-        join_overflow=jnp.sum(cand.overflow.astype(jnp.int32), axis=1),
+        join_overflow=jnp.sum(overflow.astype(jnp.int32), axis=1),
     )
 
 
@@ -603,15 +568,7 @@ def _track(
     corr_all = _batched_match(config, use_known_da, rest, prev)
 
     backend = _resolve_scan_backend(config)
-
-    # "fused_interpret" runs the same fused kernel through the Pallas
-    # interpreter — the CPU-testable form of the fused path (used by
-    # utils/selfcheck and the kernel equality tests).
-    fused_interpret = backend == "fused_interpret"
-    if fused_interpret:
-        backend = "fused"
-
-    if backend == "fused":
+    if backend in ("fused", "fused_interpret"):
         from ..ops.pallas import frame_kernel
 
         # Step i's world join looks up step i-1's correspondence targets
@@ -624,11 +581,15 @@ def _track(
         )
         cand = frame_kernel.join_candidates(
             src_idx2, src_valid, corr_all.idx1, corr_all.valid,
-            config.fused_join_depth, interpret=fused_interpret,
+            config.fused_join_depth,
+        )
+        w0 = frame_kernel.first_valid_join(
+            state.tri_points, state.tri_valid, cand.idx[0], cand.ok[0]
         )
         outs = _run_fused(
-            camera, config, state.x_curr, state.tri_points, state.tri_valid,
-            cand, prev, rest, corr_all, fused_interpret,
+            camera, config, state.x_curr, w0,
+            jax.tree.map(lambda x: x[1:], cand), cand.overflow[0],
+            prev, rest, corr_all, backend == "fused_interpret",
         )
     else:
 
@@ -727,21 +688,20 @@ def continue_sequence(
     carried state in between produces identical results — the carry is the
     complete pipeline state (utils/checkpoint.py round-trips it).
 
-    On TPU (scan_backend "auto"/"fused") the resumed frames run through
-    the SAME one-kernel-launch fused path as ``run_sequence``: the first
-    resumed frame's world-join chain comes straight from the carried
-    ``point_lookup`` (which already folds first-wins AND triangulation
-    validity, so a single exact candidate per lane reproduces the scan
-    join bit-for-bit), later frames use the standard precomputed chains,
-    and the per-frame map merges collapse into ONE ``merge_stream`` pass
-    seeded with the carried map's live entries (identical slot layout to
-    iterating ``landmark_map.update``: entries keep first-observation
-    order, every re-observation's LAST position wins). Split-vs-one-shot
-    equality on the fused backend: poses, map layout and the carried
-    lookup are bit-exact; map POSITIONS agree to ~1e-5 — the frame-0
-    gauge chains are tree-reduced (``associative_scan`` over f32 matmuls,
-    non-associative), so a split re-associates the products at the
-    boundary (tests/test_checkpoint.py::test_split_equals_oneshot_fused).
+    On the fused backend the resumed frames run through the SAME
+    one-kernel-launch path as ``run_sequence``: the first resumed frame's
+    world join comes straight from the carried ``point_lookup`` (which
+    already folds first-wins AND triangulation validity, so it reproduces
+    the scan join exactly), later frames use the standard candidate
+    chains, and the per-frame map merges collapse into ONE
+    ``merge_stream`` pass seeded with the carried map's live entries
+    (identical slot layout to iterating ``landmark_map.update``: entries
+    keep first-observation order, every re-observation's LAST position
+    wins). Split-vs-one-shot equality on the fused backend: poses, map
+    layout and the carried lookup are exact; map POSITIONS agree to ~1e-5
+    — the frame-0 gauge chains are tree-reduced (``associative_scan`` over
+    f32 matmuls, non-associative), so a split re-associates the products
+    at the boundary (tests/test_checkpoint.py).
     """
     frames = FrameData(points, appearances, masks, ids)
     # Previous-frame stack: the carried reference frame, then frames 0..F'-2.
@@ -751,48 +711,26 @@ def continue_sequence(
     corr_all = _batched_match(config, use_known_da, frames, prev)
 
     backend = _resolve_scan_backend(config)
-    fused_interpret = backend == "fused_interpret"
-    if fused_interpret or backend == "fused":
+    if backend in ("fused", "fused_interpret"):
         from ..ops.pallas import frame_kernel
 
         s = config.n_slots
-        depth = config.fused_join_depth
-        f_new = points.shape[0]
         # First resumed frame: the carried lookup IS the join (slot of the
         # first successfully-triangulated first-wins source, or -1).
-        idx1_0 = corr_all.idx1[0]
         valid_0 = corr_all.valid[0]
-        slot0 = state.point_lookup[jnp.where(valid_0, idx1_0, 0)]
+        slot0 = state.point_lookup[jnp.where(valid_0, corr_all.idx1[0], 0)]
         has0 = valid_0 & (slot0 >= 0)
         safe0 = jnp.where(has0, slot0, 0)
-        zeros = jnp.zeros((1, depth - 1, s), jnp.int32) if depth > 1 else None
-
-        def lvl0(x):
-            head = x.reshape(1, 1, s)
-            if depth == 1:
-                return head
-            return jnp.concatenate([head, zeros], axis=1)
-
-        cand0 = frame_kernel.JoinCandidates(
-            lo=lvl0((safe0 % 128).astype(jnp.int32)),
-            hi=lvl0((safe0 // 128).astype(jnp.int32)),
-            ok=lvl0(has0.astype(jnp.int32)) > 0,
-            overflow=jnp.zeros((1, s), bool),  # the lookup join is exact
+        w0 = (state.tri_points[safe0], has0 & state.tri_valid[safe0])
+        cand = frame_kernel.join_candidates(
+            corr_all.idx2[:-1], corr_all.valid[:-1],
+            corr_all.idx1[1:], corr_all.valid[1:],
+            config.fused_join_depth,
         )
-        if f_new > 1:
-            cand_rest = frame_kernel.join_candidates(
-                corr_all.idx2[:-1], corr_all.valid[:-1],
-                corr_all.idx1[1:], corr_all.valid[1:],
-                depth, interpret=fused_interpret,
-            )
-            cand = jax.tree.map(
-                lambda a, b: jnp.concatenate([a, b], axis=0), cand0, cand_rest
-            )
-        else:
-            cand = cand0
         outs = _run_fused(
-            camera, config, state.x_curr, state.tri_points, state.tri_valid,
-            cand, prev, frames, corr_all, fused_interpret,
+            camera, config, state.x_curr, w0, cand,
+            jnp.zeros((s,), bool),  # the lookup join is exact
+            prev, frames, corr_all, backend == "fused_interpret",
         )
 
         # Fold the map once: carried live entries head the stream (their
@@ -832,21 +770,17 @@ def continue_sequence(
     return jax.lax.scan(body, state, (frames, corr_all))
 
 
-@functools.partial(jax.jit, static_argnames=("config", "interpret"))
+@functools.partial(jax.jit, static_argnames=("config",))
 def relocalize_frame(
     camera: Camera,
     config: VOConfig,
     map_state: LandmarkMap,
     frame: FrameData,
     x_init: Array,
-    interpret: bool = False,
 ) -> Tuple[Array, "picp.PICPStats", Array]:
     """Map-scale re-localization: query ONE frame against the global map.
 
-    The production seat of the streaming matcher kernel: the database is
-    the whole landmark map (``map_capacity`` rows — at >=
-    ``matching.PALLAS_MIN_DB`` the "auto" backend routes onto the O(Q+K)
-    Pallas kernel, ops/pallas/matcher_kernel.best_match_pallas), the
+    The database is the whole landmark map (``map_capacity`` rows), the
     queries are one frame's descriptors, and the matches feed the standard
     PICP solve for the camera-from-map pose. Same best-match semantics as
     frame-to-frame association at map scale (eigen_kdtree.h:90-115 /
@@ -860,9 +794,7 @@ def relocalize_frame(
     num_matches).
     """
     dist, idx = matching.best_match(
-        frame.appearances, frame.mask, map_state.appearances,
-        map_state.valid, backend=config.matcher_backend, interpret=interpret,
-        precision=config.matcher_precision,
+        frame.appearances, frame.mask, map_state.appearances, map_state.valid
     )
     r2 = jnp.asarray(config.match_radius, dist.dtype) ** 2
     valid = frame.mask & (dist < r2)
@@ -877,7 +809,6 @@ def relocalize_frame(
         damping=config.damping,
         keep_outliers=config.keep_outliers,
         tolerance=config.gn_tolerance,
-        backend=config.solver_backend,
         min_num_inliers=config.min_num_inliers,
         min_iterations=config.gn_min_iterations,
     )

@@ -1,6 +1,6 @@
 """Pinhole camera as a JAX pytree with fully-vectorized masked projection.
 
-TPU-native re-design of the reference ``Camera`` class
+Re-design of the reference ``Camera`` class
 (``/root/reference/include/camera.h:12-63``,
 ``/root/reference/src/camera.cpp:16-37``): instead of a mutable object with a
 per-point bool-returning ``projectPoint``, the camera is an immutable
@@ -70,7 +70,7 @@ def project_points(camera: Camera, world_points: Array) -> Tuple[Array, Array]:
 
     Replaces the scalar loop of ``Camera::projectPoints``
     (camera.cpp:16-37, keep_indices=True mode): one fused matmul + compares on
-    the VPU instead of N branchy calls. Invalid points are ``(-1, -1)``.
+    all points at once instead of N branchy calls. Invalid points are ``(-1, -1)``.
     """
     p_cam = se3.transform_points(camera.world_in_camera, world_points)
     z = p_cam[..., 2]

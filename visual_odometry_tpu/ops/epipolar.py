@@ -1,6 +1,6 @@
 """Two-view epipolar initialization (8-point algorithm), batched + masked.
 
-TPU-native re-design of ``/root/reference/src/epipolar_utils.cpp``:
+Re-design of ``/root/reference/src/epipolar_utils.cpp``:
 
   * ``estimate_fundamental`` (epipolar_utils.cpp:103-144): [-1,1] coordinate
     normalization, Nx9 design matrix, null-space extraction, rank-2
@@ -191,7 +191,7 @@ def estimate_fundamental(
     rows = (d1[..., :, None] * d2[..., None, :]).reshape(idx1.shape + (9,))
     rows = jnp.where(corr_valid[..., None], rows, 0.0)
 
-    ata = rows.T @ rows  # (9, 9) normal matrix — one small MXU matmul
+    ata = rows.T @ rows  # (9, 9) normal matrix — one small matmul
     f_approx = _null_vector(ata).reshape(3, 3)
 
     # Re-impose rank 2 (epipolar_utils.cpp:133-141).

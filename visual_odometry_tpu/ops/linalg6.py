@@ -1,11 +1,11 @@
-"""Tiny fixed-size linear algebra, fully unrolled for the TPU.
+"""Tiny fixed-size linear algebra, fully unrolled.
 
 ``jnp.linalg.solve`` lowers a 6x6 solve to XLA's pivoted LU — a loopy,
 latency-heavy program that sits on the critical path of every Gauss-Newton
 iteration (the reference does one LDLT per round, picp_solver.cpp:109; we
 do 100 per frame inside a scan). For the SPD systems GN produces
 (H = sum wJᵀJ + damping*I), an unrolled Cholesky is a few dozen fused
-scalar FLOPs with zero control flow — exactly what the VPU wants.
+scalar FLOPs with zero control flow that XLA fuses into one kernel.
 
 All functions broadcast over leading batch dimensions.
 """

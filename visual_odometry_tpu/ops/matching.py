@@ -1,14 +1,14 @@
 """Appearance-based data association as a dense batched top-1 matcher.
 
-TPU-native replacement for the reference's PCA-split kd-tree stack
+Replacement for the reference's PCA-split kd-tree stack
 (``/root/reference/include/eigen_kdtree.h``, ``brute_force_search.h``,
 ``split.h``, ``eigen_covariance.h``) and the per-frame glue
 ``compute_correspondences_images`` (``/root/reference/src/apps/vo_complete.cpp:12-49``).
 
-A pointer-chasing kd-tree is the wrong shape for a TPU; per SURVEY.md §2
-(native ledger item 4) we instead compute the full pairwise squared-distance
-matrix with the gram trick — ``||a-b||² = ||a||² + ||b||² - 2 a·bᵀ`` — whose
-inner product is one MXU matmul, then take a masked argmin. This is *exact*:
+A pointer-chasing kd-tree is the wrong shape for an accelerator; per
+SURVEY.md §2 (native ledger item 4) we instead compute the full pairwise
+squared-distance matrix with the gram trick — ``||a-b||² = ||a||² + ||b||²
+- 2 a·bᵀ`` — whose inner product is one matmul, then take a masked argmin. This is *exact*:
 ``TreeNode_::bestMatchFull`` (eigen_kdtree.h:90-115) prunes only subtrees
 that provably cannot contain a within-radius point, so its answer equals the
 brute-force nearest neighbour within the radius
@@ -36,12 +36,6 @@ import jax.numpy as jnp
 
 Array = jnp.ndarray
 
-# "auto" backend switches to the streaming Pallas kernel at this database
-# row count: below it the dense (Q, K) matrix fits comfortably and XLA's
-# fused matmul+argmin wins; above it the O(Q*K) HBM intermediate is the
-# cost the kernel exists to remove (ops/pallas/matcher_kernel docstring).
-PALLAS_MIN_DB = 16384
-
 # Python literal, NOT jnp.float32(...): a module-level device scalar becomes
 # a runtime operand of every program that captures it, which blocks XLA from
 # folding the masking select into the argmin fusion (measured 15x slower on
@@ -66,13 +60,12 @@ class Correspondences(NamedTuple):
 def pairwise_sq_dists(a: Array, b: Array) -> Array:
     """(N, D), (M, D) -> (N, M) squared euclidean distances via the gram trick.
 
-    The descriptor axis is zero-padded to the 128-lane width before the
-    gram matmul: XLA's "dot strength reduction" can otherwise lower a
-    small-K batched dot to a dilated CONVOLUTION (observed when this op is
+    The descriptor axis is zero-padded to a width of 128 before the gram
+    matmul: XLA's "dot strength reduction" can otherwise lower a small-K
+    batched dot to a dilated CONVOLUTION (observed when this op is
     batched inside the tracking program: the D=10 gram became a
     window-119 conv at highest precision, ~30x slower than the padded
-    MXU matmul, which contracts 128 lanes regardless). Zero columns leave
-    every distance bit-identical.
+    matmul). Zero columns leave every distance bit-identical.
     """
     a2 = jnp.sum(a * a, -1)
     b2 = jnp.sum(b * b, -1)
@@ -112,45 +105,15 @@ def best_match(
     q_mask: Array,
     db: Array,
     db_mask: Array,
-    backend: str = "auto",
-    interpret: bool = False,
-    precision: str = "highest",
 ) -> Tuple[Array, Array]:
     """Top-1 nearest database row per query -> (sq_distance, index).
 
-    The backend-routed form of the kd-tree best-match queries
-    (``bestMatchFull``, eigen_kdtree.h:90-115 / ``bruteForceBestMatch``,
-    brute_force_search.h:22-41): "xla" computes the dense (Q, K) distance
-    matrix (gram matmul + first-argmin), "pallas" streams database tiles
-    through VMEM with the fused (min, argmin) reduction
-    (ops/pallas/matcher_kernel.best_match_pallas — O(Q + K) HBM traffic),
-    "auto" picks pallas on TPU once the database has >= PALLAS_MIN_DB rows.
-    Identical results either way: first index wins ties, masked queries
-    return _BIG, masked database rows never win.
-
-    ``precision="fast"`` (pallas backend only) runs the gram matmul in one
-    bf16 MXU pass instead of six f32-HIGHEST passes and re-scores the
-    selected winner exactly in f32 — the classic select-fast /
-    rescore-exact retrieval split. Returned DISTANCES are exact for the
-    returned index either way; SELECTION may differ from "highest" only
-    between candidates within bf16 rounding of each other (guarded by
-    utils/selfcheck.check_matcher_fast on margin-separated data). The
-    "xla" backend ignores it (always exact).
+    The dense form of the kd-tree best-match queries (``bestMatchFull``,
+    eigen_kdtree.h:90-115 / ``bruteForceBestMatch``,
+    brute_force_search.h:22-41): the (Q, K) distance matrix (gram matmul)
+    and its first-argmin. First index wins ties, masked queries return
+    _BIG, masked database rows never win.
     """
-    if backend == "auto":
-        backend = (
-            "pallas"
-            if jax.default_backend() == "tpu" and db.shape[0] >= PALLAS_MIN_DB
-            else "xla"
-        )
-    if backend == "pallas":
-        from .pallas.matcher_kernel import best_match_pallas
-
-        fast = precision == "fast"
-        return best_match_pallas(
-            queries, q_mask, db, db_mask, interpret=interpret,
-            precision="default" if fast else "highest", exact_rescore=fast,
-        )
     d = pairwise_sq_dists(queries, db)
     d = jnp.where(q_mask[:, None] & db_mask[None, :], d, _BIG)
     idx = jnp.argmin(d, axis=1).astype(jnp.int32)
@@ -163,8 +126,6 @@ def match_appearances(
     app2: Array,
     mask2: Array,
     radius: float = 0.1,
-    backend: str = "xla",
-    interpret: bool = False,
 ) -> Correspondences:
     """Frame-to-frame data association; returns (frame-1 idx, frame-2 idx) pairs.
 
@@ -179,11 +140,6 @@ def match_appearances(
     the kd side, matching std::minmax at vo_complete.cpp:15-33); both
     variants are computed branchlessly from the same distance matrix and
     selected with ``where`` — the distance matrix is the entire cost anyway.
-
-    ``backend`` routes the top-1 searches like :func:`best_match`
-    ("xla" default: frame slot counts are small, the shared dense matrix
-    is cheapest; "pallas"/"auto" run two streaming-kernel passes instead —
-    only worth it for very large per-frame slot counts).
     """
     if app1.shape[0] != app2.shape[0]:
         raise ValueError("padded frames must share a slot count for static shapes")
@@ -195,18 +151,14 @@ def match_appearances(
     n2 = jnp.sum(mask2.astype(jnp.int32))
     kd_is_1 = n1 >= n2  # frame 1 has >= points -> tree over frame 1
 
-    if backend == "xla":
-        d = pairwise_sq_dists(app1, app2)  # (N1, N2): rows frame 1, cols frame 2
-        d = jnp.where(mask1[:, None] & mask2[None, :], d, _BIG)
-        # Variant A: kd = frame 1, query = frame 2 (one slot per frame-2 point).
-        best1 = jnp.argmin(d, axis=0).astype(jnp.int32)  # (N2,)
-        best1_d = jnp.min(d, axis=0)
-        # Variant B: kd = frame 2, query = frame 1 (one slot per frame-1 point).
-        best2 = jnp.argmin(d, axis=1).astype(jnp.int32)  # (N1,)
-        best2_d = jnp.min(d, axis=1)
-    else:
-        best1_d, best1 = best_match(app2, mask2, app1, mask1, backend, interpret)
-        best2_d, best2 = best_match(app1, mask1, app2, mask2, backend, interpret)
+    d = pairwise_sq_dists(app1, app2)  # (N1, N2): rows frame 1, cols frame 2
+    d = jnp.where(mask1[:, None] & mask2[None, :], d, _BIG)
+    # Variant A: kd = frame 1, query = frame 2 (one slot per frame-2 point).
+    best1 = jnp.argmin(d, axis=0).astype(jnp.int32)  # (N2,)
+    best1_d = jnp.min(d, axis=0)
+    # Variant B: kd = frame 2, query = frame 1 (one slot per frame-1 point).
+    best2 = jnp.argmin(d, axis=1).astype(jnp.int32)  # (N1,)
+    best2_d = jnp.min(d, axis=1)
 
     idx1 = jnp.where(kd_is_1, best1, slots)
     idx2 = jnp.where(kd_is_1, slots, best2)
@@ -222,42 +174,9 @@ def match_appearances_batch(
     app2: Array,    # (B, N, D)
     mask2: Array,   # (B, N)
     radius: float = 0.1,
-    backend: str = "auto",
-    interpret: bool = False,
 ) -> Correspondences:
-    """Batch of frame-pair associations (one sequence's hoisted matcher).
-
-    "xla" is a plain vmap of :func:`match_appearances`. "pairs_pallas"
-    routes both-direction top-1 searches through ONE Pallas kernel pass
-    per pair (ops/pallas/matcher_kernel.match_pairs_pallas) — the (B, N, N)
-    distance tensor never reaches HBM, where the dense batched form not
-    only materializes it but gets rematerialized per reduction inside
-    large programs (measured 46 ms -> ~6 ms for the matcher stage of the
-    S=1024 tracking program). "auto" = pairs_pallas on TPU, identical
-    results (bitwise-equal distances, same tie-breaks).
-    """
-    if backend == "auto":
-        backend = "pairs_pallas" if jax.default_backend() == "tpu" else "xla"
-    if backend not in ("pairs_pallas", "pairs_pallas_interpret"):
-        return jax.vmap(
-            functools.partial(match_appearances, radius=radius, backend=backend)
-        )(app1, mask1, app2, mask2)
-
-    from .pallas.matcher_kernel import match_pairs_pallas
-
-    best1_d, best1, best2_d, best2 = match_pairs_pallas(
-        app1, mask1, app2, mask2,
-        interpret=interpret or backend == "pairs_pallas_interpret",
+    """Batch of frame-pair associations (one sequence's hoisted matcher):
+    a vmap of :func:`match_appearances`."""
+    return jax.vmap(functools.partial(match_appearances, radius=radius))(
+        app1, mask1, app2, mask2
     )
-    n = app1.shape[1]
-    r2 = jnp.asarray(radius, app1.dtype) ** 2
-    slots = jnp.arange(n, dtype=jnp.int32)[None, :]
-    n1 = jnp.sum(mask1.astype(jnp.int32), axis=1, keepdims=True)
-    n2 = jnp.sum(mask2.astype(jnp.int32), axis=1, keepdims=True)
-    kd_is_1 = n1 >= n2
-    idx1 = jnp.where(kd_is_1, best1, slots)
-    idx2 = jnp.where(kd_is_1, slots, best2)
-    best_d = jnp.where(kd_is_1, best1_d, best2_d)
-    query_mask = jnp.where(kd_is_1, mask2, mask1)
-    valid = query_mask & (best_d < r2)
-    return Correspondences(idx1=idx1, idx2=idx2, valid=valid)

@@ -1,8 +1,9 @@
-"""Hand-written TPU kernels for the framework's hot ops.
+"""Hand-written Pallas kernels for the framework's hot ops.
 
-Each kernel has a pure-JAX reference implementation in ``ops/`` that it is
-validated against bit-for-bit-ish in tests (SURVEY.md §7 step 4); the JAX
-path remains the fallback on non-TPU backends.
+``frame_kernel`` runs the tracking frame loop as one Triton-route kernel
+per sequence; its plain-JAX reference is the ``lax.scan`` over
+``models/pipeline.frame_step`` (``VOConfig.scan_backend="xla"``), and the
+tests compare the two through the Pallas interpreter.
 """
 
-from . import matcher_kernel, picp_kernel  # noqa: F401
+from . import frame_kernel  # noqa: F401

@@ -1,14 +1,15 @@
-"""Batched PCA-split tree: the TPU-native kd-tree.
+"""Batched PCA-split tree: the kd-tree as static-shape array code.
 
 The reference's data-association structure is a pointer-chasing binary tree
 that recursively splits a point set at the masked mean along the covariance's
 largest eigenvector (``/root/reference/include/eigen_kdtree.h:18-38``,
 ``split.h:8-34``, ``eigen_covariance.h:5-43``). Pointer recursion is the
-wrong shape for a TPU, but the *split geometry* itself vectorizes perfectly:
+wrong shape for an accelerator, but the *split geometry* itself vectorizes
+perfectly:
 
   * building level ``l`` means computing a masked mean/covariance for each of
-    the ``2^l`` nodes **simultaneously** — one one-hot matmul for the means
-    (MXU), one einsum for the covariances, one vmapped ``eigh`` for the
+    the ``2^l`` nodes **simultaneously** — one one-hot matmul for the means,
+    one einsum for the covariances, one vmapped ``eigh`` for the
     principal axes;
   * a point's leaf assignment is a *code*: at each level, project onto the
     node's principal axis and compare against the node's mean projection —
@@ -27,7 +28,7 @@ Query semantics mirror the reference exactly:
     true neighbour that sits across a split plane.
   * the exact search ``bestMatchFull`` (eigen_kdtree.h:90-115) visits both
     sides whenever the query ball straddles the plane and therefore returns
-    the brute-force answer — on TPU that IS the dense matcher
+    the brute-force answer — here that IS the dense matcher
     (:func:`visual_odometry_tpu.ops.matching.match_appearances`), which is
     exact by construction; no tree needed.
   * :func:`fast_radius_search` is the analogue of ``fastSearch``

@@ -1,6 +1,6 @@
 """Projective-ICP (pose from 2D-3D) as a fused, batched Gauss-Newton solver.
 
-TPU-native re-design of ``PICPSolver``
+Re-design of ``PICPSolver``
 (``/root/reference/include/picp_solver.h``,
 ``/root/reference/src/picp_solver.cpp``). The reference linearizes with a
 scalar host loop over correspondences (picp_solver.cpp:55-96) and runs
@@ -8,9 +8,8 @@ scalar host loop over correspondences (picp_solver.cpp:55-96) and runs
 Here:
 
   * the per-correspondence error/Jacobian (picp_solver.cpp:25-53) is computed
-    for ALL correspondences at once on the VPU;
-  * the H/b accumulation is a single (6, 2N) x (2N, 6) contraction that maps
-    onto the MXU;
+    for ALL correspondences at once;
+  * the H/b accumulation is a single (6, 2N) x (2N, 6) contraction;
   * the full iteration loop is a ``lax.fori_loop`` inside one jit — zero
     host round-trips for the whole solve;
   * invalid / out-of-frustum / outlier points are handled by weights instead
@@ -107,7 +106,7 @@ def linearize(
     w = contrib * lam  # (N,)
 
     # H = Σ w JᵀJ, b = Σ w Jᵀe: fold the N and residual axes together so the
-    # contraction is a (6, 2N)x(2N, 6) matmul on the MXU.
+    # contraction is a (6, 2N)x(2N, 6) matmul.
     jw = jac * w[:, None, None]
     j2 = jac.reshape(2 * n, 6)
     jw2 = jw.reshape(2 * n, 6)
@@ -164,7 +163,6 @@ def solve(
     damping: float = 1.0,
     keep_outliers: bool = False,
     tolerance: float = 0.0,
-    backend: str = "auto",
     min_num_inliers: int = 0,
     min_iterations: int = 1,
 ) -> Tuple[Camera, PICPStats]:
@@ -175,46 +173,18 @@ def solve(
     iteration budget blindly; with ``tolerance > 0`` we stop once the
     applied increment satisfies ``||dx||^2 <= tolerance`` — GN converges
     quadratically, so a tight tolerance reproduces the 100-round result
-    while doing ~10x less sequential work (the dominant cost on TPU, where
-    the frame loop's latency is iteration-bound).
+    while doing ~10x less sequential work (the frame loop's latency is
+    iteration-bound).
 
     ``tolerance == 0`` runs exactly ``num_iterations`` rounds (bit-parity
     with the reference's fixed budget).
-
-    ``backend``: "pallas" runs the whole loop as ONE fused kernel
-    (ops/pallas/picp_kernel.solve_fused — eliminates the ~45-op-per-round
-    dispatch overhead that dominates tracking wall time), "xla" the plain
-    loop below, "auto" picks pallas on TPU and xla elsewhere.
     """
     # Dead correspondence slots may carry garbage (failed triangulations can
-    # be NaN/inf); 0 * NaN = NaN would poison the H/b reductions in either
-    # backend, so sanitize masked-out inputs once up front.
+    # be NaN/inf); 0 * NaN = NaN would poison the H/b reductions, so
+    # sanitize masked-out inputs once up front.
     live = weights > 0.0
     world_points = jnp.where(live[:, None], world_points, 1.0)
     measured_points = jnp.where(live[:, None], measured_points, 0.0)
-
-    if backend == "auto":
-        backend = "pallas" if jax.default_backend() == "tpu" else "xla"
-    if backend == "pallas":
-        from .pallas.picp_kernel import solve_fused
-
-        cam_params = jnp.stack([camera.z_near, camera.z_far, camera.cols, camera.rows])
-        pose, stats = solve_fused(
-            camera.camera_matrix,
-            camera.world_in_camera,
-            cam_params,
-            world_points,
-            measured_points,
-            weights,
-            num_iterations,
-            jnp.asarray(kernel_threshold, jnp.float32),
-            jnp.asarray(damping, jnp.float32),
-            jnp.asarray(tolerance if tolerance > 0.0 else -1.0, jnp.float32),
-            keep_outliers=keep_outliers,
-            min_num_inliers=jnp.asarray(min_num_inliers, jnp.float32),
-            min_iterations=min_iterations,
-        )
-        return camera.with_pose(pose), stats
 
     kt = jnp.asarray(kernel_threshold, world_points.dtype)
     dp = jnp.asarray(damping, world_points.dtype)

@@ -5,7 +5,7 @@ estimation runs on SE(2) instead of SE(3) — the dataset's robot moves in a
 plane (trajectory.dat ground truth is (x, y, theta)), so freezing z, roll and
 pitch removes three unobservable-under-planar-motion DoF and tightens the
 solve. That branch is not part of this checkout; this module is a from-
-scratch TPU-native design of the same idea, structured like
+scratch design of the same idea, structured like
 :mod:`visual_odometry_tpu.ops.picp` (SE(3) solver, picp_solver.cpp:25-112).
 
 Geometry. The camera is rigidly mounted on the robot via ``cam_in_robot``
@@ -25,8 +25,8 @@ derivative of the updated camera-frame point at d = 0 is::
 
 and the residual Jacobian is ``Jp · K ·`` that (2, 3) — the planar analogue
 of ``J = Jp · K · Jr`` (picp_solver.cpp:43-52). H is 3x3, solved in closed
-form; all correspondences are processed batched on the VPU/MXU exactly like
-the SE(3) solver.
+form; all correspondences are processed batched exactly like the SE(3)
+solver.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """SE(3) utilities on the Euler-angle chart, as batched JAX ops.
 
-TPU-native re-design of the reference math layer
+Re-design of the reference math layer
 (``/root/reference/include/utils.h:16-102``): poses are plain ``(4, 4)``
 float32 arrays (or ``(..., 4, 4)`` batches) instead of ``Eigen::Isometry3f``,
 and every function is jit/vmap-friendly (no Python control flow on traced

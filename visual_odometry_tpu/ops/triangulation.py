@@ -1,6 +1,6 @@
 """Mid-point two-view triangulation, fully batched with validity masks.
 
-TPU-native re-design of ``triangulate_point`` / ``triangulate_points``
+Re-design of ``triangulate_point`` / ``triangulate_points``
 (``/root/reference/src/utils.cpp:36-134``). The reference solves a 2x2
 normal-equation system per correspondence inside a host loop and *compacts*
 the output vector; here the 2x2 solve is closed-form, vmapped across all

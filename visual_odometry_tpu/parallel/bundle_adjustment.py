@@ -74,8 +74,8 @@ def _residuals_and_jacobians(
     """All per-observation quantities, batched over the full (F, L) grid.
 
     Written as explicit broadcast arithmetic (the same component expansion
-    as ops/pallas/picp_kernel.py) instead of batched (2,3)x(3,3) einsums —
-    batched tiny matmuls lower to loopy code on TPU, broadcasts fuse.
+    as ops/pallas/frame_kernel.py) instead of batched (2,3)x(3,3) einsums,
+    so XLA fuses it elementwise.
     Returns the Jacobian x/y rows separately: j_pose_x/y (F, L, 6),
     j_lm_x/y (F, L, 3).
     """
@@ -157,7 +157,7 @@ def _assemble(camera_matrix, poses, landmarks, observations, obs_mask, kernel_th
         camera_matrix, poses, landmarks, observations, obs_mask, kernel_threshold
     )
     ww = w[..., None]
-    # H_pp[f] = Σ_l w (jxᵀjx + jyᵀjy): batched (6, L)x(L, 6) MXU matmuls.
+    # H_pp[f] = Σ_l w (jxᵀjx + jyᵀjy): batched (6, L)x(L, 6) matmuls.
     h_pp = jnp.einsum("flj,fli->fij", jpx, jpx * ww) + jnp.einsum(
         "flj,fli->fij", jpy, jpy * ww
     )                                                           # (F, 6, 6)
@@ -180,8 +180,8 @@ def _assemble(camera_matrix, poses, landmarks, observations, obs_mask, kernel_th
 def _inv3x3(m: Array) -> Array:
     """Closed-form batched 3x3 inverse (adjugate / det).
 
-    ``jnp.linalg.inv`` lowers batched tiny matrices to looping LU on TPU;
-    the adjugate form is pure fused elementwise math over the batch.
+    The adjugate form is pure fused elementwise math over the batch, where
+    ``jnp.linalg.inv`` runs a pivoted LU per tiny matrix.
     """
     a, b, c = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
     d, e, f = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
@@ -358,8 +358,8 @@ def refine(
 
     One step compiles once and is reused every iteration; wrapping the whole
     loop in a single fori_loop program instead compiles for minutes and
-    runs ~60x slower on TPU (measured: the loop forces materialization of
-    the big (F, L, 6, 3) coupling intermediates between iterations).
+    forces materialization of the big (F, L, 6, 3) coupling intermediates
+    between iterations.
     """
     dmp = jnp.asarray(damping, jnp.float32)
     kt = jnp.asarray(kernel_threshold, jnp.float32)

@@ -1,10 +1,10 @@
 """Sharded appearance matching: landmark database split across chips.
 
-Scales the dense matcher (``ops/matching.py``) past one chip's HBM: the
-database (map / keyframe descriptors) is sharded over the ``lm`` mesh axis,
-queries are replicated, each device computes its local top-1 via the
-gram-trick matmul, and a single ``psum``-style min-reduction over ICI
-combines (distance, global index) pairs. This is the multi-chip form of the
+Scales the dense matcher (``ops/matching.py``) past one device's memory:
+the database (map / keyframe descriptors) is sharded over the ``lm`` mesh
+axis, queries are replicated, each device computes its local top-1 via the
+gram-trick matmul, and a single ``psum``-style min-reduction combines
+(distance, global index) pairs. This is the multi-chip form of the
 kd-tree replacement mandated by BASELINE.json (SURVEY.md §2, native ledger
 item 4) — no reference counterpart exists (the reference is single-thread).
 
@@ -38,15 +38,11 @@ def sharded_best_match(
     q_mask: Array,      # (Q,)
     radius: float = 0.1,
     axis: str = "lm",
-    backend: str = "auto",
 ) -> Tuple[Array, Array]:
     """Global top-1 match per query -> (global db index | -1, sq distance).
 
     Semantics match ``ops.matching``: strict ``d^2 < radius^2`` acceptance,
-    first global minimum wins ties. ``backend`` routes each device's local
-    top-1 through ``ops.matching.best_match`` — under "auto" the local
-    shard runs the streaming Pallas kernel on TPU once its share of the
-    database reaches ``matching.PALLAS_MIN_DB`` rows.
+    first global minimum wins ties.
     """
     l_total = db.shape[0]
     n_shards = mesh.shape[axis]
@@ -61,7 +57,7 @@ def sharded_best_match(
         out_specs=(P(), P()),
     )
     def _match(db_s, db_mask_s, q, qm):
-        dist, idx_local = matching.best_match(q, qm, db_s, db_mask_s, backend)
+        dist, idx_local = matching.best_match(q, qm, db_s, db_mask_s)
         shard = jax.lax.axis_index(axis)
         idx_global = idx_local + shard * l_local
         # Min-reduce (distance, index) over the landmark axis: first take

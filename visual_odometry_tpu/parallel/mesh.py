@@ -1,17 +1,18 @@
 """Device-mesh helpers.
 
 The reference is single-threaded C++ with no communication layer
-(SURVEY.md §2 "Parallelism ... none"); the TPU framework's distribution
-axes are (per BASELINE.json's north star and SURVEY.md §5):
+(SURVEY.md §2 "Parallelism ... none"); this framework's distribution axes
+are (per BASELINE.json's north star and SURVEY.md §5):
 
   * ``dp``  — data parallel over sequences / keyframe windows;
   * ``lm``  — model-state parallel over landmark blocks (the axis the
               distributed bundle adjustment and the sharded matcher
-              reduce over, riding ICI).
+              reduce over).
 
 Collectives are XLA's (``psum``/``all_gather``/``ppermute``) via
-``shard_map`` over a :class:`jax.sharding.Mesh` — the TPU-native
-equivalent of NCCL/MPI in the reference's world.
+``shard_map`` over a :class:`jax.sharding.Mesh`; on GPUs XLA hands them to
+NCCL. The mesh follows the algorithm alone: the cards of one host are
+joined all to all, so no device order is better than another.
 """
 
 from __future__ import annotations
@@ -60,13 +61,13 @@ def init_distributed(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
 ) -> int:
-    """Initialize multi-host JAX (the NCCL/MPI-init analog).
+    """Initialize multi-process JAX (the NCCL/MPI-init analog).
 
-    Call once per host before building meshes; ``jax.devices()`` then spans
-    the whole pod slice and the (dp, lm) meshes built here automatically
-    ride ICI within a slice and DCN across slices. Arguments default to the
-    standard JAX environment variables (TPU pods auto-discover). Returns
-    the global device count. No-op if already initialized.
+    Call once per process before building meshes; ``jax.devices()`` then
+    spans every process's devices. Pass all three arguments (coordinator
+    ``host:port``, process count, this process's id) where nothing in the
+    environment describes the cluster. Returns the global device count.
+    No-op if already initialized.
     """
     try:
         jax.distributed.initialize(

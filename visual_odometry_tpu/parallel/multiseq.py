@@ -1,28 +1,19 @@
-"""Data-parallel tracking: many sequences in flight on one chip or a mesh.
+"""Data-parallel tracking: many sequences in flight on one device or a mesh.
 
 The reference processes one sequence in one thread; the frame loop is
-inherently serial (SURVEY.md §7 "hard parts"), so the TPU-native way to
-scale *tracking* throughput is batch parallelism over independent sequences
-(or keyframe windows of one long sequence). Two on-chip forms:
+inherently serial (SURVEY.md §7 "hard parts"), so tracking throughput
+scales by batch parallelism over independent sequences (or keyframe
+windows of one long sequence). The whole vo_complete program
+(models/pipeline._run) is vmapped over a leading batch axis:
+pose-independent stages (pair matching, join candidates, gathers, the map
+fold) batch into bigger XLA kernels, and on the fused backend the frame
+loop kernel (ops/pallas/frame_kernel) runs one Pallas program per
+sequence, so B sequences occupy B of the card's SMs at once.
 
-* ``backend="vmap"``: the whole vo_complete program (models/pipeline) is
-  vmapped over a leading batch axis. Pose-independent stages (pair
-  matching, join candidates, gathers, the map fold) genuinely batch into
-  bigger kernels — but the sequential frame loop does NOT: vmap of the
-  fused frame kernel folds sequences into extra GRID rows
-  (ops/pallas/frame_kernel._fused_fn), which a TPU core executes one
-  after another, so the serial portion scales as B x serial time.
-* ``backend="sublane"`` (default on TPU): the batched frame loop runs in
-  :func:`frame_kernel.track_frames_fused_serving`, where a serving group
-  of ``inner_batch`` sequences rides the SUBLANE axis of every tile —
-  at the flagship S=128 a single sequence's (S,) row ops fill one sublane
-  of one vreg, so lock-stepping 8 sequences per tile multiplies
-  utilization of the latency-bound loop instead of serializing it.
-  Per sequence the kernel arithmetic is identical to the single-sequence
-  fused path (bitwise when compiled on TPU).
-
-Across chips the batch axis is sharded over the ``dp`` mesh axis (zero
-cross-chip communication: sequences are independent).
+Across devices the batch axis is sharded over the ``dp`` mesh axis with
+``shard_map`` (zero cross-device communication: sequences are
+independent, and each device runs its shard of the batch as one local
+program).
 """
 
 from __future__ import annotations
@@ -42,200 +33,36 @@ from ..utils.config import VOConfig
 Array = jnp.ndarray
 
 
-@functools.partial(jax.jit, static_argnames=("config",))
-def _run_batch(camera: Camera, config: VOConfig, points, appearances, masks, ids):
+def _run_local(camera: Camera, config: VOConfig, points, appearances, masks):
+    ids = jnp.full(masks.shape, -1, jnp.int32)
+
     def one(p, a, m, i):
         return pipeline._run(camera, config, p, a, m, i, False)
 
     return jax.vmap(one)(points, appearances, masks, ids)
 
 
-@functools.partial(
-    jax.jit, static_argnames=("config", "inner_batch", "interpret")
-)
-def _run_serving(
-    camera: Camera,
-    config: VOConfig,
-    points: Array,        # (B, F, S, 2)
-    appearances: Array,   # (B, F, S, D)
-    masks: Array,         # (B, F, S)
-    inner_batch: int,
-    interpret: bool = False,
-) -> Tuple[Array, LandmarkMap, pipeline.FrameOutput]:
-    """The batched tracking program with every stage batch-aware.
-
-    Mirrors ``pipeline._run`` stage by stage with a leading sequence axis:
-    bootstrap and the map fold are vmapped XLA code (they batch well as
-    is), pair matching / join-candidate / gather kernels see the batch
-    flattened into their existing frame axis (one big kernel instead of B
-    vmap-serialized ones), and the sequential frame loop runs
-    ``inner_batch`` sequences per sublane tile in
-    :func:`frame_kernel.track_frames_fused_serving`.
-    """
-    from ..ops import se3
-    from ..ops.pallas import frame_kernel, gather_kernel
-
-    n, f, s, _ = points.shape
-    d = appearances.shape[-1]
-    ids = jnp.full(masks.shape, -1, jnp.int32)
-    frames_all = pipeline.FrameData(points, appearances, masks, ids)
-    f0 = jax.tree.map(lambda x: x[:, 0], frames_all)
-    f1 = jax.tree.map(lambda x: x[:, 1], frames_all)
-
-    # Two-frame bootstrap, one batched matcher kernel + vmapped init.
-    corr01 = pipeline._batched_match(config, False, f1, f0)
-    state, x_init = jax.vmap(
-        lambda a, b, c: pipeline.initialize(camera, config, a, b, corr=c)
-    )(f0, f1, corr01)
-    init_tri = pipeline.InitTriangulation(
-        points=state.map.points[:, :s],
-        apps=state.map.appearances[:, :s],
-        valid=state.map.valid[:, :s],
-    )
-
-    # Consecutive-pair matching for all sequences in ONE kernel: the
-    # sequence axis flattens into the pair matcher's existing frame axis.
-    rest = jax.tree.map(lambda x: x[:, 2:], frames_all)
-    prev = jax.tree.map(lambda x: x[:, 1:-1], frames_all)
-
-    def flat(x):
-        return x.reshape((n * (f - 2),) + x.shape[2:])
-
-    corr_all = pipeline._batched_match(
-        config, False, jax.tree.map(flat, rest), jax.tree.map(flat, prev)
-    )
-
-    # World-join candidate chains, one batched kernel over B*(F-2) frames.
-    idx2_nf = corr_all.idx2.reshape(n, f - 2, s)
-    valid_nf = corr_all.valid.reshape(n, f - 2, s)
-    src_idx2 = flat(
-        jnp.concatenate([corr01.idx2[:, None], idx2_nf[:, :-1]], axis=1)
-    )
-    src_valid = flat(
-        jnp.concatenate([corr01.valid[:, None], valid_nf[:, :-1]], axis=1)
-    )
-    cand_flat = frame_kernel.join_candidates(
-        src_idx2, src_valid, corr_all.idx1, corr_all.valid,
-        config.fused_join_depth, interpret=interpret,
-    )
-    cand = frame_kernel.JoinCandidates(
-        lo=cand_flat.lo.reshape(n, f - 2, -1, s),
-        hi=cand_flat.hi.reshape(n, f - 2, -1, s),
-        ok=cand_flat.ok.reshape(n, f - 2, -1, s),
-        overflow=cand_flat.overflow.reshape(n, f - 2, s),
-    )
-
-    # Lane-aligned pixel rows, one batched gather kernel.
-    safe1 = jnp.where(corr_all.valid, corr_all.idx1, 0)
-    safe2 = jnp.where(corr_all.valid, corr_all.idx2, 0)
-    prev_pts = flat(prev.points)
-    cur_pts = flat(rest.points)
-    px1, py1, px2, py2 = gather_kernel.take_lanes(
-        [prev_pts[..., 0], prev_pts[..., 1],
-         cur_pts[..., 0], cur_pts[..., 1]],
-        [safe1, safe1, safe2, safe2],
-        interpret=interpret,
-    )
-    prev_al = jnp.stack([px1, py1], axis=-1).reshape(n, f - 2, s, 2)
-    cur_al = jnp.stack([px2, py2], axis=-1).reshape(n, f - 2, s, 2)
-
-    cam_params = jnp.stack(
-        [camera.z_near, camera.z_far, camera.cols, camera.rows]
-    )
-    poses, tri_all, tri_ok_all, solver_stats = (
-        frame_kernel.track_frames_fused_serving(
-            camera.camera_matrix,
-            cam_params,
-            state.x_curr,
-            state.tri_points,
-            state.tri_valid,
-            cand,
-            prev_al,
-            cur_al,
-            valid_nf,
-            config.gn_iterations,
-            jnp.asarray(config.kernel_threshold, jnp.float32),
-            jnp.asarray(config.damping, jnp.float32),
-            jnp.asarray(
-                config.gn_tolerance if config.gn_tolerance > 0.0 else -1.0,
-                jnp.float32,
-            ),
-            keep_outliers=config.keep_outliers,
-            warm_start=config.warm_start,
-            min_num_inliers=jnp.asarray(config.min_num_inliers, jnp.float32),
-            interpret=interpret,
-            min_iterations=config.gn_min_iterations,
-            inner_batch=inner_batch,
-            planar=config.planar,
-            cam_in_robot=config.planar_mount(),
-        )
-    )
-    tri_apps_all = jnp.stack(
-        gather_kernel.take_lanes(
-            [flat(rest.appearances)[..., j] for j in range(d)],
-            [safe2] * d,
-            interpret=interpret,
-        ),
-        axis=-1,
-    ).reshape(n, f - 2, s, d)
-
-    outs = pipeline.FrameOutput(
-        pose=poses,
-        num_matches=jnp.sum(valid_nf.astype(jnp.int32), axis=-1),
-        num_solver_corr=solver_stats[..., 3].astype(jnp.int32),
-        num_inliers=solver_stats[..., 2].astype(jnp.int32),
-        chi_inliers=solver_stats[..., 0],
-        tri_points=tri_all,
-        tri_apps=tri_apps_all,
-        tri_valid=tri_ok_all,
-        join_overflow=jnp.sum(cand.overflow.astype(jnp.int32), axis=-1),
-    )
-
-    # Per-sequence map fold + trajectory assembly (pipeline._run's tail).
-    from ..models import landmark_map
-
-    def fold(x_init_1, outs_1, init_tri_1):
-        inv_poses = jax.vmap(se3.inverse)(outs_1.pose)
-        chains = jax.lax.associative_scan(
-            jnp.matmul,
-            jnp.concatenate(
-                [se3.inverse(x_init_1)[None], inv_poses[:-1]], axis=0
-            ),
-        )
-        tri_world = jax.vmap(se3.transform_points)(chains, outs_1.tri_points)
-        stream_pts = jnp.concatenate(
-            [init_tri_1.points, tri_world.reshape(-1, 3)]
-        )
-        stream_apps = jnp.concatenate(
-            [init_tri_1.apps, outs_1.tri_apps.reshape(-1, d)]
-        )
-        stream_mask = jnp.concatenate(
-            [init_tri_1.valid, outs_1.tri_valid.reshape(-1)]
-        )
-        final_map = landmark_map.merge_stream(
-            stream_pts, stream_apps, stream_mask, config.map_capacity
-        )
-        trajectory = jnp.concatenate(
-            [
-                jnp.eye(4, dtype=outs_1.pose.dtype)[None],
-                x_init_1[None],
-                outs_1.pose,
-            ],
-            axis=0,
-        )
-        return trajectory, final_map
-
-    trajectory, final_map = jax.vmap(fold)(x_init, outs, init_tri)
-    return trajectory, final_map, outs
+_run_batch = jax.jit(_run_local, static_argnames=("config",))
 
 
-def _serving_inner(b: int, inner_batch: int) -> int:
-    """Largest divisor of ``b`` no greater than ``inner_batch`` (the
-    sublane group size; 8 fills the f32 sublanes exactly)."""
-    inner = min(inner_batch, b)
-    while b % inner:
-        inner -= 1
-    return inner
+@functools.lru_cache(maxsize=None)
+def _sharded_fn(mesh: Mesh, dp_axis: str, config: VOConfig):
+    spec = P(dp_axis)
+
+    @jax.jit
+    def sharded(camera, points, appearances, masks):
+        return jax.shard_map(
+            lambda c, p, a, m: _run_local(c, config, p, a, m),
+            mesh=mesh,
+            in_specs=(P(), spec, spec, spec),
+            out_specs=spec,
+            # Pallas calls don't annotate varying mesh axes on their
+            # outputs; per-shard independence is the whole design (no
+            # collectives), so the check buys nothing.
+            check_vma=False,
+        )(camera, points, appearances, masks)
+
+    return sharded
 
 
 def run_sequences_batched(
@@ -247,87 +74,30 @@ def run_sequences_batched(
     mesh: Optional[Mesh] = None,
     dp_axis: str = "dp",
     validate: bool = True,
-    backend: str = "auto",
-    inner_batch: int = 8,
-    interpret: bool = False,
 ) -> Tuple[Array, LandmarkMap, pipeline.FrameOutput]:
     """Track B sequences at once; returns batched (trajectories, maps, outs).
 
-    ``backend`` picks the batching form (module docstring): "sublane"
-    lock-steps ``inner_batch`` sequences per tile in the serving frame
-    kernel, "vmap" vmaps the whole single-sequence program, "auto" picks
-    sublane on a single TPU device when the fused path would run (both
-    the SE(3) and planar est_SE2 solvers, learned DA) and vmap
-    otherwise. With ``mesh`` the batch axis is
-    sharded over ``dp_axis`` (B must divide the axis size) and the vmap
-    form is used per shard. ``validate`` runs the fused world-join
-    exactness guard on the result (pipeline.check_join_overflow — a scalar
-    fetch); throughput harnesses that queue batches asynchronously can
-    defer it after checking the workload once.
+    The frame loop runs on ``config.scan_backend`` exactly as in
+    :func:`pipeline.run_sequence`, per sequence. With ``mesh`` the batch
+    axis is sharded over ``dp_axis`` (B must divide by the axis size).
+    ``validate`` runs the fused world-join exactness guard on the result
+    (pipeline.check_join_overflow — a scalar fetch); throughput harnesses
+    that queue batches asynchronously can defer it after checking the
+    workload once.
     """
-    b = points.shape[0]
-    if backend == "auto":
-        use_sublane = (
-            mesh is None
-            and not interpret
-            and jax.default_backend() == "tpu"
-            and pipeline._resolve_scan_backend(config) == "fused"
+    if mesh is None:
+        out = _run_batch(camera, config, points, appearances, masks)
+    else:
+        b, n_dev = points.shape[0], mesh.shape[dp_axis]
+        if b % n_dev:
+            raise ValueError(f"batch {b} does not divide over {n_dev} devices")
+        ns = NamedSharding(mesh, P(dp_axis))
+        out = _sharded_fn(mesh, dp_axis, config)(
+            camera,
+            jax.device_put(points, ns),
+            jax.device_put(appearances, ns),
+            jax.device_put(masks, ns),
         )
-        backend = "sublane" if use_sublane else "vmap"
-    if backend == "sublane":
-        if mesh is not None:
-            # Multi-chip serving: shard the sequence batch over dp with
-            # shard_map, each device running the sublane kernel on its
-            # local shard (sequences are independent — zero collectives).
-            # shard_map, not sharded-jit: the Pallas serving kernel needs
-            # per-device LOCAL arrays, not partitioned global operands.
-            n_dev = mesh.shape[dp_axis]
-            assert b % n_dev == 0, (b, n_dev)
-            local_b = b // n_dev
-            inner = _serving_inner(local_b, inner_batch)
-            spec = P(dp_axis)
-
-            @jax.jit
-            def sharded(p, a, m):
-                return jax.shard_map(
-                    lambda pp, aa, mm: _run_serving(
-                        camera, config, pp, aa, mm,
-                        inner_batch=inner, interpret=interpret,
-                    ),
-                    mesh=mesh,
-                    in_specs=(spec, spec, spec),
-                    out_specs=spec,
-                    # Pallas calls don't annotate varying-mesh-axes on
-                    # their out_shapes; per-shard independence is the
-                    # whole design here (no collectives), so the check
-                    # buys nothing.
-                    check_vma=False,
-                )(p, a, m)
-
-            ns = NamedSharding(mesh, spec)
-            out = sharded(
-                jax.device_put(points, ns),
-                jax.device_put(appearances, ns),
-                jax.device_put(masks, ns),
-            )
-        else:
-            out = _run_serving(
-                camera, config, points, appearances, masks,
-                inner_batch=_serving_inner(b, inner_batch),
-                interpret=interpret,
-            )
-        if validate:
-            pipeline.check_join_overflow(out[2])
-        return out
-
-    ids = jnp.full(masks.shape, -1, jnp.int32)
-    if mesh is not None:
-        spec = NamedSharding(mesh, P(dp_axis))
-        points = jax.device_put(points, spec)
-        appearances = jax.device_put(appearances, spec)
-        masks = jax.device_put(masks, spec)
-        ids = jax.device_put(ids, spec)
-    out = _run_batch(camera, config, points, appearances, masks, ids)
     if validate:
         pipeline.check_join_overflow(out[2])
     return out

@@ -2,8 +2,8 @@
 
 The reference's frame loop is strictly serial with a carried pose
 (``/root/reference/src/apps/vo_complete.cpp:150-179``) — the "long
-sequence" axis of this workload (SURVEY.md §5). The TPU-native way to
-parallelize ONE long sequence is the VO analogue of context parallelism:
+sequence" axis of this workload (SURVEY.md §5). The way to parallelize ONE
+long sequence is the VO analogue of context parallelism:
 
   1. split the F-frame sequence into C overlapping chunks;
   2. track every chunk INDEPENDENTLY (each chunk re-runs the two-view

@@ -60,32 +60,13 @@ from ..ops import se3
 Array = jnp.ndarray
 
 
-def _frame_kernels_ok(f: int) -> bool:
-    """Route frame-space gathers/sums through the Pallas kernels on TPU.
-
-    XLA's scatter/gather serialize on the scalar core (~10 ns/element);
-    at 600k observations the CG matvec spent ~70 ms per application there
-    (4.3 s per LM iteration at 512 poses x 100k landmarks, measured). The
-    kernels need the frame space to fit a VMEM table (F <= 1024)."""
-    return jax.default_backend() == "tpu" and f <= 1024
-
-
 def _gather_frame_rows(v: Array, frame_idx: Array) -> Array:
     """(F, R) table gathered to (N, R) by frame id."""
-    f = v.shape[0]
-    if _frame_kernels_ok(f):
-        from ..ops.pallas import gather_kernel
-
-        return gather_kernel.take_table(v.T, frame_idx).T
     return v[frame_idx]
 
 
 def _segsum_frame_rows(vals: Array, frame_idx: Array, f: int) -> Array:
     """(N, R) rows summed into (F, R) by frame id (id >= f drops the row)."""
-    if _frame_kernels_ok(f) and vals.shape[1] <= 64:
-        from ..ops.pallas import segsum_kernel
-
-        return segsum_kernel.segment_sum_small(vals, frame_idx, f)
     return jax.ops.segment_sum(vals, frame_idx, num_segments=f + 1)[:f]
 
 
@@ -113,9 +94,7 @@ def pack_problem(problem: SparseBAProblem):
     slots, slot l*degree + r holding landmark l's r-th observation (padded
     slots masked). With this layout the LM-side stages of the Schur-CG
     matvec — segment-sum by landmark and the gather back — become a
-    reshape-reduce and a broadcast: pure VPU work instead of XLA
-    scatter/gathers that serialize on the TPU scalar core (measured: the
-    un-packed 512x100k problem spent ~4 s per LM iteration there).
+    reshape-reduce and a broadcast instead of a scatter-add and a gather.
     Returns (problem, None) unchanged when packing would blow up the
     observation count (a landmark observed in most frames).
     """
@@ -202,31 +181,13 @@ def _per_obs_system(camera_matrix, poses, landmarks, frame_idx, lm_idx, uv,
     """
     safe_f = jnp.where(obs_mask, frame_idx, 0)
     safe_l = jnp.where(obs_mask, lm_idx, 0)
-    f = poses.shape[0]
-    if _frame_kernels_ok(f):
-        # (N, 12) pose rows via the VMEM-table gather kernel (the XLA
-        # (N, 3, 3) gather serializes on the scalar core).
-        from ..ops.pallas import gather_kernel
-
-        tab = poses[:, :3, :4].reshape(f, 12).T          # (12, F)
-        top = gather_kernel.take_table(tab[:8], safe_f)  # (8, N)
-        bot = gather_kernel.take_table(tab[8:], safe_f)  # (4, N)
-        pr = jnp.concatenate([top, bot], axis=0)         # (12, N)
-        rf_rows = {
-            (i, j): pr[4 * i + j] for i in range(3) for j in range(3)
-        }
-        tf = jnp.stack([pr[3], pr[7], pr[11]], axis=-1)  # (N, 3)
-    else:
-        rf = poses[safe_f, :3, :3]                  # (N, 3, 3)
-        tf = poses[safe_f, :3, 3]                   # (N, 3)
-        rf_rows = None
+    rf = poses[safe_f, :3, :3]                  # (N, 3, 3)
+    tf = poses[safe_f, :3, 3]                   # (N, 3)
     p = _gather_lm(landmarks, safe_l, uv.shape[0], lm_degree)  # (N, 3)
     k = camera_matrix
     wx, wy, wz = p[:, 0], p[:, 1], p[:, 2]
 
     def rr(i, j):
-        if rf_rows is not None:
-            return rf_rows[(i, j)]
         return rf[:, i, j]
 
     px = rr(0, 0) * wx + rr(0, 1) * wy + rr(0, 2) * wz + tf[:, 0]
@@ -291,7 +252,7 @@ def _inv3x3(m: Array) -> Array:
     """Batched adjugate 3x3 inverse with Jacobi pre-scaling.
 
     The raw adjugate overflows f32 when diagonal entries reach ~1e20
-    (cofactor products hit f32 max; see ops/pallas/picp_kernel gn_loop's
+    (cofactor products hit f32 max; see ops/pallas/frame_kernel._gn_se3's
     scaled Schur solve) — scale to unit diagonal first, invert, scale back.
     """
     d = jnp.sqrt(jnp.maximum(jnp.stack(
@@ -416,7 +377,7 @@ def _build_reduced(camera_matrix, problem: SparseBAProblem, damping,
         lm_degree,
     )                                                        # (N, 3, 3)
     w_n = wrx[:, :, None] * lrx[:, None, :] + wry[:, :, None] * lry[:, None, :]
-    # Broadcast-sum forms of the batched tiny matmuls (loopy on TPU).
+    # Broadcast-sum forms of the batched tiny matmuls.
     y_n = (w_n[:, :, None, :] * hinv_n[:, None, :, :]).sum(-1)   # (N, 6, 3)
     diag_corr = (
         y_n[:, :, None, :] * w_n[:, None, :, :]
@@ -466,9 +427,8 @@ def _coupling_apply(sys: _ReducedSystem, mask_f: Array, v: Array,
     u = sys.l_rows_x * dx_[:, None] + sys.l_rows_y * dy_[:, None]  # (N, 3)
     n = u.shape[0]
     s_l = _segsum_lm(u, sys.lm_idx, mask_f > 0, num_lm, lm_degree)  # (L, 3)
-    # broadcast-mul + reduce, NOT einsum: a batched (3,3)@(3,) einsum
-    # lowers to loopy per-element code on TPU (cf. bundle_adjustment.py's
-    # identical note) and this runs once per CG iteration.
+    # broadcast-mul + reduce, NOT einsum: XLA fuses the broadcast form into
+    # its neighbours, and this runs once per CG iteration.
     m_l = (sys.h_ll_inv * s_l[:, None, :]).sum(-1)                 # (L, 3)
     mn = _gather_lm(m_l, sys.lm_idx, n, lm_degree)                 # (N, 3)
     # y_n = W_n m = wrx (lrx . m) + wry (lry . m)  (6,)
@@ -696,10 +656,8 @@ def partition_observations_packed(
     over ``n_shards`` (l_per per shard) and each shard's observations land
     in packed slots ``(local_lm * degree + rank)`` with a GLOBAL degree
     (max per-landmark observation count), so inside every shard the
-    LM-side CG stages are reshape-reduces/broadcasts instead of the XLA
-    scatters that serialize on the TPU scalar core — the single-device
-    measurement was ~17x (``pack_problem`` docstring); per-shard the same
-    structure applies. Returns (frame_idx, local_lm_idx, uv, mask) in
+    LM-side CG stages are reshape-reduces/broadcasts instead of scatters
+    (``pack_problem`` docstring). Returns (frame_idx, local_lm_idx, uv, mask) in
     shard-major order plus (l_per, degree); feed ``degree`` to
     :func:`make_sharded_sparse_ba_step` as ``lm_degree``.
     """
@@ -755,7 +713,7 @@ def make_sharded_sparse_ba_step(
     slots) — the scatter-free layout every shard's LM stages then use.
 
     Collectives per step: one psum of (F,6,6)+(F,6)+(F,6,6) at assembly and
-    one (F, 6) psum per CG matvec — all O(F) over ICI.
+    one (F, 6) psum per CG matvec — all O(F).
     """
 
     def local_step(camera_matrix, poses, landmarks, frame_idx, lm_idx, uv,

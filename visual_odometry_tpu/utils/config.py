@@ -15,8 +15,9 @@ reproduce ``vo_complete``:
 (vo_daKnown.cpp:149-150).
 
 Static-shape knobs (``n_slots``, ``map_capacity``) have no reference
-counterpart — they are the TPU pad-to-max sizes. Keep them multiples of 128
-(the f32 lane count) for clean tiling.
+counterpart — they are the pad-to-max sizes of the compiled programs. The
+fused frame-loop kernel pads ``n_slots`` to a power of two, so powers of
+two waste no lanes.
 """
 
 from __future__ import annotations
@@ -60,24 +61,6 @@ class VOConfig:
 
     # --- data association ---
     match_radius: float = 0.1
-    # Top-1 matcher backend (ops/matching.best_match): "xla" = dense
-    # gram-matrix + argmin, "pallas" = streaming VMEM kernel with fused
-    # (min, argmin) — O(Q+K) HBM traffic, the large-database winner —
-    # "auto" = pallas on TPU once the database side reaches
-    # matching.PALLAS_MIN_DB rows (at per-frame slot counts auto stays on
-    # the dense path, which is faster there).
-    matcher_backend: str = "auto"
-    # Map-scale matcher precision (ops/matching.best_match; applies to the
-    # streaming Pallas backend only — relocalization and other
-    # whole-database queries). "highest" = exact f32 grams (6 MXU passes
-    # per f32 operand pair, bit-identical to the XLA matcher).
-    # "fast" = one bf16 MXU pass + exact f32 re-score of each winner:
-    # returned distances (and thus every radius-acceptance decision) stay
-    # exact for the selected index; selection itself can differ from
-    # "highest" only between candidates within bf16 rounding of each
-    # other (utils/selfcheck.check_matcher_fast guards the margin case).
-    # Frame-to-frame tracking association always runs exact.
-    matcher_precision: str = "highest"
 
     # --- estimation group (reference branch est_SE2, README.md:13) ---
     # planar=True constrains the per-frame solve to SE(2) increments acting
@@ -128,24 +111,20 @@ class VOConfig:
     # (defs.h:7-29); there is deliberately no dtype knob — GN/eigh numerics
     # in this pipeline do not survive bf16, and f64 buys nothing (the
     # reference itself is f32 end to end).
-    # PICP solver backend: "pallas" = whole GN loop fused into one kernel
-    # (ops/pallas/picp_kernel.solve_fused), "xla" = plain lax loop, "auto" =
-    # pallas on TPU / xla elsewhere.
-    solver_backend: str = "auto"
-    # Frame-loop backend for run_sequence: "fused" = the entire per-frame
-    # step (join + GN + triangulation + lookup scatter) as ONE Pallas kernel
-    # with a sequential grid over frames (ops/pallas/frame_kernel), "xla" =
-    # lax.scan over frame_step, "auto" = fused on TPU — for both the SE(3)
-    # and the planar (est_SE2) estimation groups; the planar kernel swaps
-    # the GN loop for picp_kernel.gn_loop_se2.
+    # Frame-loop backend for the sequence runners: "fused" = the whole
+    # frame loop (join + GN + triangulation) as ONE Pallas kernel compiled
+    # through Triton (ops/pallas/frame_kernel), "xla" = lax.scan over
+    # frame_step, "fused_interpret" = the fused kernel through the Pallas
+    # interpreter (CPU tests), "auto" = fused on a GPU, xla elsewhere — for
+    # both the SE(3) and the planar (est_SE2) estimation groups.
     scan_backend: str = "auto"
-    # First-wins depth of the fused kernel's precomputed world-join chains
+    # First-wins depth of the fused kernel's world-join candidate chains
     # (ops/pallas/frame_kernel.join_candidates). Exact reference semantics
     # whenever no measurement is the target of more than this many same-
     # frame correspondences whose earlier candidates ALL failed
-    # triangulation; measured multiplicity on example_data is 1, so 2
-    # carries a spare level. NOT a silent assumption: the chain builder
-    # flags lanes whose multiplicity exceeds the depth
+    # triangulation; measured multiplicity on the reference dataset is 1,
+    # so 2 carries a spare level. NOT a silent assumption: the chain
+    # builder flags lanes whose multiplicity exceeds the depth
     # (FrameOutput.join_overflow) and the sequence runners hard-error on
     # them (pipeline.FusedJoinDepthError) — raise this knob to the
     # reported bound to restore exactness, or use scan_backend="xla".

@@ -205,7 +205,7 @@ def pad_frames(frames: List[Frame], n_slots: Optional[int] = None) -> PaddedSequ
     counts = np.array([len(f.points) for f in frames], np.int32)
     max_n = int(counts.max()) if len(frames) else 0
     if n_slots is None:
-        n_slots = -(-max_n // 128) * 128  # round up to the f32 lane count
+        n_slots = -(-max_n // 128) * 128  # round up to a multiple of 128
     if max_n > n_slots:
         raise ValueError(f"frame with {max_n} points exceeds n_slots={n_slots}")
     f = len(frames)

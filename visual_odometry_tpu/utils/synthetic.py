@@ -86,8 +86,8 @@ def generate_tracking_sequence(
     forward+turn path walked out of the scene after ~100 frames, so "long
     sequence" workloads silently degenerated to empty frames — and no
     pair is stationary or pure-rotation. Appearances are the per-landmark
-    unique keys (utils.cpp:127 semantics). Used by the scaling benchmarks,
-    the selfchecks and the multi-device dryruns; track with
+    unique keys (utils.cpp:127 semantics). Used by the scaling
+    measurements, the kernel tests and the multi-device dry runs; track with
     :func:`deep_camera` (see its docstring for why z_far=5 cannot hold a
     monocularly-rescaled synthetic map).
     """
@@ -166,9 +166,10 @@ def generate_ba_corridor(
     seed: int = 0,
     noise_lm: float = 0.02,
     noise_pose: float = 0.01,
+    with_truth: bool = False,
 ):
     """Production-scale sparse-BA corridor problem (shared by
-    benchmarks/bench_sparse_ba, utils/roofline and parallel/scaling).
+    chip_smoke.py, benchmarks/bench_sparse_ba and parallel/scaling).
 
     Cameras advance along +z at 0.2/frame; landmark i becomes visible
     around camera ``i * f / l`` and is observed by the next ``obs_per_lm``
@@ -176,7 +177,8 @@ def generate_ba_corridor(
     the observation structure of a real forward-moving VO sequence. The
     returned problem carries landmark/pose noise so a BA step performs
     genuine correction work. Returns (camera_matrix (3, 3) np.float32,
-    SparseBAProblem, live observation count).
+    SparseBAProblem, live observation count), plus the noise-free (poses,
+    landmarks) with ``with_truth``.
     """
     import jax.numpy as jnp
 
@@ -238,4 +240,6 @@ def generate_ba_corridor(
         uv=jnp.asarray(uv.astype(np.float32)),
         obs_mask=jnp.asarray(mask),
     )
+    if with_truth:
+        return k, problem, int(mask.sum()), (poses, world)
     return k, problem, int(mask.sum())
